@@ -1,7 +1,7 @@
-// Native data-pipeline kernels for the TPU recommender framework.
+// Native data-pipeline kernels for the recsys_tpu recommender framework.
 //
 // The reference's L1 is pandas/sklearn (SURVEY.md §2.3) — single-threaded
-// Python that becomes the bottleneck once the TPU step is sub-10ms.  This
+// Python that becomes the bottleneck once the device step is a few ms.  This
 // library provides the hot host-side paths as a C ABI consumed via ctypes
 // (recsys_tpu/data/native.py):
 //

@@ -485,9 +485,9 @@ def main(argv=None):
                             "fused_adam", "fused_rowwise_adagrad"],
                    help="table-update path (ctr task): lazy_adam/"
                         "rowwise_adagrad are sparse touched-rows updates; "
-                        "fused_* route through the streaming Pallas "
-                        "backward+update kernel (single chip, exact dense "
-                        "semantics — the fast path)")
+                        "fused_* apply an exact dense Adam / rowwise "
+                        "AdaGrad from the perturbation tap (one "
+                        "scatter-add + one elementwise pass per table)")
     p.add_argument("--embedding-engine", default="gather",
                    choices=["gather", "psum", "dedup", "a2a",
                             "a2a_pipelined"],
@@ -501,7 +501,7 @@ def main(argv=None):
                    help="a2a owner-bucket capacity factor; <=0 = exact "
                         "(never drop) mode")
     p.add_argument("--bf16", action="store_true",
-                   help="MXU-native bf16 compute (DLRM)")
+                   help="bf16 compute (DLRM)")
     p.add_argument("--retrieval-loss", choices=["softmax", "bce"],
                    default="softmax")
     p.add_argument("--no-logq", dest="logq", action="store_false",
@@ -510,6 +510,9 @@ def main(argv=None):
     p.add_argument("--sasrec-prefix", action="store_true",
                    help="exploded-prefix training instead of all-position")
     args = p.parse_args(argv)
+    from recsys_tpu.tools import enable_compile_cache
+
+    enable_compile_cache()
     if args.task in ("youtube", "mind"):
         args.model = "mind" if args.task == "mind" else "youtube"
     return {

@@ -1,10 +1,10 @@
-"""Typed feature schema for the TPU-native recommender framework.
+"""Typed feature schema for the recommender framework.
 
 Generalises the reference's untyped feature-descriptor dicts
 (``sparseFeature``/``denseFeature`` at /root/reference/src/ctr/utils/
 data_process.py:13-30 and ``varLenSparseFeat`` at /root/reference/src/match/
 utils/feature_util.py:1-29) into frozen dataclasses, and adds the one thing
-the TPU design needs that the reference does not have: a *stacked vocabulary*
+the design needs that the reference does not have: a *stacked vocabulary*
 view. Instead of one small Embedding table per field (reference pattern at
 /root/reference/src/ctr/deep_fm/model.py:31-38), all sparse fields of equal
 embed_dim share ONE (total_vocab, embed_dim) table addressed with per-field

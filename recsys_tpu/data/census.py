@@ -3,7 +3,7 @@
 Reproduces /root/reference/src/ctr/utils/data_process.py:229-294: the
 census-income dataset becomes a two-task problem — task 1: income > 50k,
 task 2: never-married — with categorical columns label-encoded (the
-reference one-hots into a dense frame; the TPU build embeds instead) and the
+reference one-hots into a dense frame; this build embeds instead) and the
 test file split 1:1 into val/test.
 """
 from __future__ import annotations

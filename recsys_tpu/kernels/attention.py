@@ -6,9 +6,8 @@ fixed: scaling is 1/sqrt(d) (ref bug §2.6.4 multiplies by sqrt(d)) and a
 ``None`` mask means *no* masking (ref bug §2.6.9 masks everything).  Masking
 uses a large negative additive bias in the softmax.
 
-A fused Pallas flash-style kernel (blockwise online-softmax) for long
-sequences is provided in ``recsys_tpu/kernels/pallas/flash_attention.py`` and
-selected on TPU via the `use_pallas` switch by the ops layer.
+This materialised-softmax form is the plain reference; the model path goes
+through :func:`recsys_tpu.kernels.dispatch.sdpa`.
 """
 from __future__ import annotations
 
@@ -28,9 +27,8 @@ def sdpa(
     """Attention over the last two axes: (..., S_q, D) x (..., S_k, D).
 
     mask: broadcastable to (..., S_q, S_k); 1/True = attend, 0 = masked out.
-    precision: matmul precision for both einsums (None = TPU DEFAULT, bf16
-    MXU inputs with f32 accumulation — see the precision contract on
-    kernels/dispatch.sdpa).
+    precision: matmul precision for both einsums (None = the backend's
+    default, which on the GPU may run float32 products in TF32).
     """
     d = q.shape[-1]
     logits = jnp.einsum(

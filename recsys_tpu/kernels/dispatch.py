@@ -1,282 +1,48 @@
-"""Dispatch layer: per-op routing between XLA references and Pallas kernels.
+"""Attention route: XLA's materialised softmax or cuDNN's fused kernel.
 
-Public entry points mirror the reference ops in kernels/{interactions,
-attention,embedding}.py.  Routing is *measured*, not dogmatic (numbers from
-the v5e this framework was tuned on, 4096-example criteo-shaped batches):
-
-* dot-interaction: the Pallas kernel is the DEFAULT for F <= 64 — the
-  round-2 on-chip sweep (tools/kernel_sweep.py, fwd+bwd train steps)
-  measured it 1.08-2.34x over XLA's einsum+tril gather across
-  B {4096,16384} x F {26,64} x D {16,64,128} (e.g. 2.34x at B4096/F64/D16,
-  1.27x at the DLRM bench shape B16384/F26/D16 = +6.4% end-to-end step),
-  and 0.75-0.98x at F=128 where XLA wins — hence the F cutoff.  The
-  round-1 "always ~7% slower" reading predated the packed-table/bf16
-  work and does not reproduce.
-* FM bi-interaction: a wash on chip (0.89-1.13x across the same sweep,
-  no consistent band), so the simpler XLA einsum stays the default;
-  RECSYS_TPU_PALLAS_INTERACTIONS=1 forces both kernels on everywhere.
-* attention: the flash kernel switches in once the score matrix is big
-  enough to be HBM-bound (Sq*Sk >= 256^2); short sequences use the fused
-  XLA softmax path.
-* pooled gather: Pallas needs the embedding width lane-aligned (D % 128);
-  narrower tables use XLA's gather+reduce.
-
-The Pallas forwards carry exact closed-form custom VJPs so they train under
-jax.grad.  The XLA paths deliberately do NOT go through custom_vjp — XLA's
-own autodiff backward fuses better than a hand-written scatter (measured:
-routing the jnp path through the closed-form VJP cost ~2.5 ms/step on the
-DLRM bench).  ``interpret=True`` forces the kernel path in interpreter mode
-for CPU testing.
+``sdpa`` runs ``jax.nn.dot_product_attention`` with one of its two GPU
+implementations.  cuDNN's fused flash attention takes bf16 and fp16
+operands only, so the route is chosen from the operand dtype and the
+platform, which the code can observe; everything else (float32, the CPU)
+takes XLA's materialised softmax.  Both routes keep XLA's autodiff.
 """
 from __future__ import annotations
-
-import functools
-import os
 
 import jax
 import jax.numpy as jnp
 
-from recsys_tpu.kernels import attention as attn_ref
-from recsys_tpu.kernels import embedding as emb_ref
-from recsys_tpu.kernels import interactions as int_ref
-from recsys_tpu.kernels import use_pallas
+_CUDNN_DTYPES = (jnp.dtype(jnp.bfloat16), jnp.dtype(jnp.float16))
 
 
-def _opt_in(name: str, default: str = "0") -> bool:
-    return os.environ.get(name, default) not in ("0", "false", "")
+def attention_implementation(dtype) -> str:
+    """``'cudnn'`` for bf16/fp16 operands on the GPU, else ``'xla'``."""
+    if jax.default_backend() == "gpu" and jnp.dtype(dtype) in _CUDNN_DTYPES:
+        return "cudnn"
+    return "xla"
 
 
-# Flash switches in where it starts beating XLA's fused softmax.  With the
-# retuned 512x512 tiles (measured v5e, B*H=512, D=64, causal fwd+bwd):
-# S=256 XLA ahead (5.2 vs 6.2 ms), S=512 flash ahead (13.0 vs 10.2 ms),
-# S=1024 flash 1.6x (44.4 vs 27.7 ms); S>=2048 XLA OOMs on the
-# materialised scores and flash is the only path.
-_FLASH_MIN_SCORES = 512 * 512
+def sdpa(q, k, v, mask=None, *, causal: bool = False,
+         implementation: str | None = None):
+    """Masked attention over (B, H, S, D) operands.
 
-
-def _pallas_interactions() -> bool:
-    return use_pallas() and _opt_in("RECSYS_TPU_PALLAS_INTERACTIONS")
-
-
-# dot-interaction win band measured by tools/kernel_sweep.py (see module
-# docstring); above this field count XLA's einsum wins and is used instead
-_DOT_PALLAS_MAX_F = 64
-
-
-# -- FM bi-interaction ------------------------------------------------------
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
-def _fm_vec_pallas(field_embs, interpret):
-    from recsys_tpu.kernels.pallas.interactions_tpu import (
-        fm_pairwise_vector_pallas,
-    )
-
-    # kernel accumulates in f32; emit the input dtype like the jnp reference
-    return fm_pairwise_vector_pallas(field_embs, interpret=interpret).astype(
-        field_embs.dtype
-    )
-
-
-def _fm_fwd(x, interpret):
-    return _fm_vec_pallas(x, interpret), x
-
-
-def _fm_bwd(interpret, x, g):
-    # y_d = 0.5((sum_f x_fd)^2 - sum_f x_fd^2) ; dy_d/dx_fd = (sum_f' x) - x_f
-    s = jnp.sum(x, axis=1, keepdims=True)  # (B, 1, D)
-    return ((g[:, None, :] * (s - x)).astype(x.dtype),)
-
-
-_fm_vec_pallas.defvjp(_fm_fwd, _fm_bwd)
-
-
-def fm_pairwise_vector(field_embs, *, interpret: bool = False):
-    if _pallas_interactions() or interpret:
-        return _fm_vec_pallas(field_embs, interpret)
-    return int_ref.fm_pairwise_vector(field_embs)
-
-
-def fm_pairwise(field_embs, *, interpret: bool = False):
-    return jnp.sum(fm_pairwise_vector(field_embs, interpret=interpret), axis=-1)
-
-
-# -- DLRM dot-interaction ---------------------------------------------------
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2))
-def _dot_pallas(vectors, self_interaction, interpret):
-    from recsys_tpu.kernels.pallas.interactions_tpu import (
-        dot_interaction_pallas,
-    )
-
-    return dot_interaction_pallas(
-        vectors, self_interaction=self_interaction, interpret=interpret
-    )
-
-
-def _dot_fwd(x, self_interaction, interpret):
-    return _dot_pallas(x, self_interaction, interpret), x
-
-
-@functools.lru_cache(maxsize=16)
-def _dot_sel_matrix(f: int, self_interaction: bool):
-    """(P, F*F) 0/1/2 selection: packed slot (i,j) -> sym positions.
-
-    Equivalent to scatter + transpose-add (diagonal doubles), but as a
-    static-coefficient MATMUL — measured 1.89 vs 2.70 ms standalone on the
-    DLRM bench interaction bwd (scatter serialises, the matmul rides the
-    MXU).
-
-    Returns a NUMPY array: caching a jnp value here would capture the first
-    grad trace's constant and poison every later trace in the process with
-    UnexpectedTracerError (the round-3 `bench.py --breakdown` crash) — the
-    caller converts per trace, which XLA folds to the same device constant."""
-    import numpy as np
-
-    rows, cols = np.tril_indices(f, k=0 if self_interaction else -1)
-    s = np.zeros((len(rows), f * f), np.float32)
-    for n, (i, j) in enumerate(zip(rows, cols)):
-        if i == j:
-            s[n, i * f + i] = 2.0  # d(x_i . x_i)/dx_i = 2 x_i
-        else:
-            s[n, i * f + j] = 1.0
-            s[n, j * f + i] = 1.0
-    return s
-
-
-def _dot_bwd(self_interaction, interpret, x, g):
-    b, f, d = x.shape
-    sel = jnp.asarray(_dot_sel_matrix(f, self_interaction)).astype(g.dtype)
-    sym = (g @ sel).reshape(b, f, f)
-    dx = jax.lax.dot_general(
-        sym, x, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )
-    return (dx.astype(x.dtype),)
-
-
-_dot_pallas.defvjp(_dot_fwd, _dot_bwd)
-
-
-def dot_interaction(vectors, *, self_interaction: bool = False,
-                    interpret: bool = False):
-    in_band = vectors.shape[1] <= _DOT_PALLAS_MAX_F
-    if interpret or (use_pallas() and in_band) or _pallas_interactions():
-        return _dot_pallas(vectors, self_interaction, interpret)
-    return int_ref.dot_interaction(vectors, self_interaction=self_interaction)
-
-
-# -- fused masked attention -------------------------------------------------
-def _full_mask(mask, q, k, causal):
+    ``mask`` is a (B, Sk) key-padding mask (1 = attend) or None; it may
+    mark any positions, so left-padded histories are expressed exactly.
+    ``implementation`` overrides the dtype-based choice (``'xla'`` or
+    ``'cudnn'``).  A float32 call runs at the backend's default matmul
+    precision; wrap it in ``jax.default_matmul_precision("highest")`` for
+    full float32 products on the GPU.
+    """
+    impl = implementation or attention_implementation(q.dtype)
     sq, sk = q.shape[-2], k.shape[-2]
     m = None
     if mask is not None:
         m = mask[:, None, None, :].astype(bool)
-    if causal:
-        c = jnp.arange(sq)[:, None] >= jnp.arange(sk)[None, :]
-        m = c if m is None else m & c
-    return m
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6))
-def _sdpa_pallas(q, k, v, mask, causal, interpret, precision=None):
-    from recsys_tpu.kernels.pallas.attention_tpu import flash_attention
-
-    return flash_attention(q, k, v, mask, causal=causal, interpret=interpret,
-                           precision=precision)
-
-
-def _sdpa_fwd(q, k, v, mask, causal, interpret, precision=None):
-    from recsys_tpu.kernels.pallas.attention_tpu import flash_attention_fwd
-
-    out, lse = flash_attention_fwd(
-        q, k, v, mask, causal=causal, interpret=interpret, precision=precision
+        if impl == "cudnn":
+            # cuDNN takes the mask as a bias over the full (Sq, Sk) plane
+            m = jnp.broadcast_to(m, (q.shape[0], 1, sq, sk))
+    out = jax.nn.dot_product_attention(
+        q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+        v.transpose(0, 2, 1, 3), mask=m, is_causal=causal,
+        implementation=impl,
     )
-    return out, (q, k, v, mask, out, lse)
-
-
-def _sdpa_bwd(causal, interpret, precision, res, g):
-    # flash backward kernels: blockwise recompute from the saved logsumexp,
-    # O(S) memory end to end
-    from recsys_tpu.kernels.pallas.attention_tpu import flash_attention_bwd
-
-    q, k, v, mask, out, lse = res
-    dq, dk, dv = flash_attention_bwd(
-        q, k, v, mask, out, lse, g, causal=causal, interpret=interpret,
-        precision=precision,
-    )
-    return dq, dk, dv, None
-
-
-_sdpa_pallas.defvjp(_sdpa_fwd, _sdpa_bwd)
-
-
-def sdpa(q, k, v, mask=None, *, causal: bool = False,
-         interpret: bool = False, precision=None):
-    """Fused attention over (B, H, S, D); mask is a (B, Sk) key-padding mask
-    (1 = attend) or None.
-
-    Precision contract: ``precision=None`` (the default) runs every matmul —
-    in BOTH the flash kernel and the XLA fallback — at the TPU's DEFAULT
-    matmul precision (inputs rounded to bf16 on the MXU, f32 accumulation),
-    the same contract as every dense layer in the framework.  Because the
-    two paths order their bf16 roundings differently, their *gradients*
-    differ ~0.2% relative at SASRec shapes while EACH is ~0.4% from
-    float64 (measured on v5e by tools/flash_numerics.py).  Pass
-    ``precision=jax.lax.Precision.HIGHEST`` to run the MXU in full-f32
-    passes: XLA then lands ~1e-6 from float64 and flash ~3e-5 (the
-    residual is flash's f32 exp/lse recompute, not the MXU), at ~3x
-    matmul cost."""
-    big = q.shape[-2] * k.shape[-2] >= _FLASH_MIN_SCORES
-    if (use_pallas() and big) or interpret:
-        return _sdpa_pallas(q, k, v, mask, causal, interpret, precision)
-    return attn_ref.sdpa(q, k, v, _full_mask(mask, q, k, causal),
-                         precision=precision)
-
-
-# -- pooled embedding gather ------------------------------------------------
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
-def _ssg_pallas(table, rows, mask, mode, interpret):
-    from recsys_tpu.kernels.pallas.embedding_tpu import pooled_gather_pallas
-
-    return pooled_gather_pallas(
-        table, rows, mask, mode=mode, interpret=interpret
-    )
-
-
-def _ssg_fwd(table, rows, mask, mode, interpret):
-    return _ssg_pallas(table, rows, mask, mode, interpret), (
-        table.shape, rows, mask,
-    )
-
-
-def _ssg_bwd(mode, interpret, res, g):
-    (v, d), rows, mask = res
-    m = mask.astype(g.dtype)  # (B, L)
-    if mode == "mean":
-        count = jnp.maximum(jnp.sum(m, axis=1, keepdims=True), 1.0)
-        w = m / count
-    elif mode == "sqrtn":
-        count = jnp.maximum(jnp.sum(m, axis=1, keepdims=True), 1.0)
-        w = m / jnp.sqrt(count)
-    else:
-        w = m
-    per_row = g[:, None, :] * w[..., None]  # (B, L, D)
-    dtable = jnp.zeros((v, d), g.dtype).at[rows.reshape(-1)].add(
-        per_row.reshape(-1, d)
-    )
-    return dtable, None, None
-
-
-_ssg_pallas.defvjp(_ssg_fwd, _ssg_bwd)
-
-
-def segment_sum_gather(table, rows, mask, *, mode: str = "mean",
-                       interpret: bool = False):
-    aligned = table.shape[1] % 128 == 0
-    if (use_pallas() and aligned) or interpret:
-        return _ssg_pallas(table, rows, mask, mode, interpret)
-    return emb_ref.segment_sum_gather(table, rows, mask, mode=mode)
-
-
-def gather(table, rows):
-    """Plain row gather — XLA's native dynamic-gather is the TPU-optimal
-    path for this op; kept here so callers use one import site."""
-    return emb_ref.gather(table, rows)
+    return out.transpose(0, 2, 1, 3)

@@ -1,6 +1,6 @@
 """Embedding gather / segment-sum lookup.
 
-TPU-native replacement for the per-field ``tf.keras.layers.Embedding``
+Replacement for the per-field ``tf.keras.layers.Embedding``
 gathers of the reference (/root/reference/src/ctr/deep_fm/model.py:53-54).
 The framework-level contract is two ops:
 
@@ -11,10 +11,7 @@ The framework-level contract is two ops:
   positions (reference's PoolingLayer, /root/reference/src/match/layers/
   modules.py:187-211).
 
-Default implementation is XLA's native fused gather (``table[rows]``), which
-on TPU compiles to an efficient dynamic-gather; a Pallas double-buffered
-gather for the sharded engine lives alongside and is selected on TPU for the
-large-table path.
+Both are XLA's native gather (``table[rows]``) plus a masked reduction.
 """
 from __future__ import annotations
 
@@ -28,16 +25,14 @@ def gather(table: jnp.ndarray, rows: jnp.ndarray) -> jnp.ndarray:
 
 
 def pack_factor(embed_dim: int, vocab: int | None = None) -> int:
-    """Vocab rows per 512-byte physical row (f32 lane width 128).
+    """Vocab rows per 512-byte physical row (128 f32 values).
 
-    XLA's TPU gather/scatter cost is per physical ROW, and rows narrower
-    than the 128-lane vector register waste bandwidth.  Measured on v5e
-    (26 tables, 16384 updates each): scatter-add into (100k, 16) tables
-    takes 12.6 ms vs 4.0 ms into the byte-identical packed (12.5k, 128)
-    layout; (1M, 16) takes 44 ms vs 10 ms packed.  Gathers show the same
-    ordering.  The pack factor keeps ``pack * embed_dim`` at one 128-lane
-    register row; small vocabularies pack less so the physical table keeps
-    >= 64 rows (degenerate 1-row tables can't row-shard and gain nothing).
+    The packed layout stores ``pack`` vocab rows side by side in one wide
+    physical row, so gathers and scatter-adds move whole 512-byte rows
+    instead of narrow ``embed_dim``-wide ones.  Whether this pays on the
+    GPU is not measured yet.  Small vocabularies pack less so the physical
+    table keeps >= 64 rows (degenerate 1-row tables can't row-shard and
+    gain nothing).
     """
     p = max(1, 128 // embed_dim)
     if vocab is not None:

@@ -1,9 +1,6 @@
 """Feature-interaction compute ops: FM pairwise and DLRM dot-interaction.
 
-jnp reference implementations (ground truth for the Pallas variants and the
-default on non-TPU backends).  The Pallas TPU kernels live in
-``recsys_tpu/kernels/pallas/`` and are swapped in by the wrapper when
-:func:`recsys_tpu.kernels.use_pallas` is true.
+Plain jnp implementations; XLA's autodiff supplies their backward.
 
 Reference semantics being reproduced (with its bugs fixed):
 * FM second-order: 0.5 * sum((sum_f v_f)^2 - sum_f v_f^2) over field

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
 from recsys_tpu.ops.attention import MultiHeadAttention
-from recsys_tpu.ops.embedding import StackedEmbedding
+from recsys_tpu.ops.linen import StackedEmbedding
 
 
 class AutoInt(nn.Module):

@@ -12,9 +12,9 @@ import flax.linen as nn
 import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
-from recsys_tpu.kernels import dispatch as ikernels
-from recsys_tpu.ops.embedding import SparseLinear, StackedEmbedding
-from recsys_tpu.ops.mlp import MLP
+from recsys_tpu.kernels import interactions as ikernels
+from recsys_tpu.ops.linen import SparseLinear, StackedEmbedding
+from recsys_tpu.ops.linen import MLP
 
 
 class DeepFM(nn.Module):

@@ -27,8 +27,8 @@ import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
 from recsys_tpu.ops.attention import TargetAttention
-from recsys_tpu.ops.embedding import StackedEmbedding
-from recsys_tpu.ops.mlp import Dice, PReLU
+from recsys_tpu.ops.linen import StackedEmbedding
+from recsys_tpu.ops.linen import Dice, PReLU
 
 
 class DIN(nn.Module):

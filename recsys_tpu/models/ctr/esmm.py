@@ -17,8 +17,8 @@ import flax.linen as nn
 import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
-from recsys_tpu.ops.embedding import StackedEmbedding
-from recsys_tpu.ops.mlp import MLP
+from recsys_tpu.ops.linen import StackedEmbedding
+from recsys_tpu.ops.linen import MLP
 
 
 class ESMM(nn.Module):

@@ -13,8 +13,8 @@ import flax.linen as nn
 import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
-from recsys_tpu.kernels import dispatch as ikernels
-from recsys_tpu.ops.embedding import SparseLinear, StackedEmbedding
+from recsys_tpu.kernels import interactions as ikernels
+from recsys_tpu.ops.linen import SparseLinear, StackedEmbedding
 
 
 class FMMatch(nn.Module):

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
 from recsys_tpu.kernels import embedding as ekernels
-from recsys_tpu.ops.mlp import MLP
+from recsys_tpu.ops.linen import MLP
 
 
 def squash(s: jnp.ndarray, axis: int = -1, eps: float = 1e-9) -> jnp.ndarray:

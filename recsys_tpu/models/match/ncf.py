@@ -19,7 +19,7 @@ import flax.linen as nn
 import jax.numpy as jnp
 
 from recsys_tpu.kernels import embedding as ekernels
-from recsys_tpu.ops.mlp import MLP
+from recsys_tpu.ops.linen import MLP
 
 
 class NCF(nn.Module):

@@ -4,8 +4,8 @@ items scored against the catalog with in-batch sampled softmax.
 Parity target: /root/reference/src/match/youtube_dnn/model.py:43-61, with
 the SampledSoftmaxLayer misuse fixed (bug §2.6.14: the reference used the
 batch's item-tower outputs as the softmax weight matrix and the embedding
-dim as num_classes).  Here training uses the idiomatic TPU objective —
-in-batch sampled softmax with logQ correction
+dim as num_classes).  Here training uses the idiomatic accelerator
+objective — in-batch sampled softmax with logQ correction
 (recsys_tpu.train.losses.in_batch_sampled_softmax).
 
 ``__call__`` returns {'user': (B, D), 'item': (B, D)}; ``user_embed`` /
@@ -20,8 +20,8 @@ import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
 from recsys_tpu.kernels import embedding as ekernels
-from recsys_tpu.ops.embedding import StackedEmbedding
-from recsys_tpu.ops.mlp import MLP
+from recsys_tpu.ops.linen import StackedEmbedding
+from recsys_tpu.ops.linen import MLP
 
 
 class YoutubeDNN(nn.Module):

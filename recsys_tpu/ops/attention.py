@@ -57,7 +57,7 @@ class MultiHeadAttention(nn.Module):
         v = nn.Dense(dim, use_bias=False, name="wv")(v_in)
         qh, kh, vh = (split_heads(t, self.num_heads) for t in (q, k, v))
         # mask contract: (B, S_k) key-padding mask (1 = attend) or None;
-        # the dispatch layer routes to the fused Pallas kernel on TPU
+        # the dispatch layer picks XLA or cuDNN attention from the dtype
         out = merge_heads(dkernels.sdpa(qh, kh, vh, mask, causal=self.causal))
         if self.out_proj:
             out = nn.Dense(dim, name="wo")(out)

@@ -1,22 +1,27 @@
-"""Grouped stacked-vocabulary embedding engine.
+"""Grouped stacked-vocabulary embedding engine, as pure functions.
 
-TPU-first replacement for the reference's per-field ``Embedding`` dicts
+Replaces the reference's per-field ``Embedding`` dicts
 (/root/reference/src/ctr/deep_fm/model.py:31-38,
 /root/reference/src/match/dssm/model.py:24-34).
 
 Physical layout is *grouped*: the schema's sparse fields are assigned to
-``num_groups`` tables (default: one table per field).  Measured on TPU v5e
-(4096x26 criteo-shaped batch): XLA's scatter-add into a single stacked
-2.6M-row cotangent buffer costs ~12.7 ms while the same updates into
-per-field buffers cost ~7.5 ms — independent scatters pipeline, one big
-scatter serialises.  Gathers show the same ordering (2.8 vs 4.9 ms).  The
-grouped layout keeps the stacked-offset API (and the `model`-axis row
-sharding story: each group table row-shards independently) at per-field
-scatter speed.  ``num_groups=1`` recovers the single-table layout.
+``num_groups`` tables (default: one table per field), so each group's
+scatter-add in the backward is an independent op, and each group table
+row-shards independently over the ``model`` mesh axis.  ``num_groups=1``
+recovers the single-table layout.
+
+:class:`EmbeddingLayout` holds the static layout (group assignment, row
+packing, lookup engine) and computes on an explicit param dict
+``{"table_0": ..., "table_1": ...}``.  The flax adapter
+(:class:`recsys_tpu.ops.linen.StackedEmbedding`) and the flax-free DLRM
+(:mod:`recsys_tpu.models.ctr.dlrm`) both call it.
 """
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+from typing import Any
+
+import jax
 import jax.numpy as jnp
 
 from recsys_tpu.core.features import FeatureSchema
@@ -57,19 +62,29 @@ def _pad8(n: int) -> int:
 
 ENGINES = ("gather", "psum", "dedup", "a2a", "a2a_pipelined")
 
+# Keras Embedding's default init, uniform(-0.05, 0.05); the reference's
+# embed_reg l2 is applied by the train loop as decoupled weight decay.
+TABLE_INIT_SCALE = 0.05
 
-class StackedEmbedding(nn.Module):
+
+def init_table(key, shape, dtype=jnp.float32):
+    return jax.random.uniform(
+        key, shape, dtype, -TABLE_INIT_SCALE, TABLE_INIT_SCALE
+    )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EmbeddingLayout:
     """Grouped embedding tables behind a stacked-offset API.
 
-    ``__call__`` takes field-local IDs shaped (B, F) ordered like
-    ``schema.sparse`` and returns (B, F, D).  ``lookup`` embeds an arbitrary
-    ID tensor for one named field (varlen history / item towers).
+    ``embed`` takes field-local IDs shaped (B, F) ordered like
+    ``schema.sparse`` and returns (B, F, D).  ``lookup`` embeds an
+    arbitrary ID tensor for one named field (varlen history / item towers).
 
     Physical storage is additionally ROW-PACKED (``pack_rows``): each group
     table is (ceil(V_g / p), p * D) with ``p = pack_factor(D)`` vocab rows
-    per 512-byte physical row.  See kernels.embedding.pack_factor for the
-    measured 3-4x scatter/gather win this buys on TPU; ``table_logical``
-    recovers the (V, D) view (a free reshape).
+    per 512-byte physical row (kernels.embedding.pack_factor);
+    ``table_logical`` recovers the (V, D) view (a free reshape).
 
     ``engine`` selects the sharded-lookup mechanism (requires ``mesh``):
 
@@ -79,53 +94,38 @@ class StackedEmbedding(nn.Module):
     * ``'psum'`` / ``'dedup'`` — the explicit shard_map psum engine
       (parallel/embedding_sharding.sharded_gather[_dedup]).
     * ``'a2a'`` — explicit all-to-all ID exchange, the production path for
-      tables too large to replicate.  Measured comm accounting
-      (tools/comm_bytes.py, artifacts/comm_bytes.json): at cf=1.25 it moves
-      ~1.29x the psum engine's bytes through all-to-all, a ~2/cf wire
-      advantage once the all-reduce's ~2x ring amplification is priced in;
-      its production wins are owner-local gather/scatter (no full-output
-      partial-sum buffer per model shard) and dedup'd hot ids.  All of a
-      group's fields exchange in ONE a2a pair, so ``num_groups=1`` gives
-      one exchange per step.  Dropped-id counts are sown into the
-      ``'a2a_stats'`` collection every call — the Trainer surfaces them as
-      ``history['a2a_dropped']``; ``capacity_factor=None`` is the exact
-      (never-drop) mode.  Replaces the reference's replicated per-device
-      tables (/root/reference/src/ctr/deep_fm/model.py:31-38 under
-      MirroredStrategy).
-    * ``'a2a_pipelined'`` — same exchange split into ``a2a_chunks`` id
+      tables too large to replicate.  Comm accounting (tools/comm_bytes.py,
+      artifacts/comm_bytes.json): at cf=1.25 it moves ~1.29x the psum
+      engine's bytes through all-to-all, a ~2/cf wire advantage once the
+      all-reduce's ~2x ring amplification is priced in; its other wins are
+      owner-local gather/scatter (no full-output partial-sum buffer per
+      model shard) and dedup'd hot ids.  All of a group's fields exchange
+      in ONE a2a pair, so ``num_groups=1`` gives one exchange per step.
+      Every call returns its dropped-id count (the Trainer surfaces the
+      sum as ``history['a2a_dropped']``); ``capacity_factor=None`` is the
+      exact (never-drop) mode.
+    * ``'a2a_pipelined'`` — the same exchange split into ``a2a_chunks`` id
       chunks scheduled so chunk k's return a2a can overlap chunk k+1's
       local gather (independence proven at the jaxpr level,
-      tests/test_pipeline_structure.py).  Since round 4 it moves the SAME
-      total bytes as 'a2a' (per-chunk capacity), so choosing it costs
-      nothing on the wire — but the overlap win itself CANNOT be measured
-      on this environment's virtual CPU mesh, so treat it as
-      experimental-pending-hardware: pick 'a2a' by default; try
-      'a2a_pipelined' on a real multi-chip slice where the profiler can
-      show the gather/a2a overlap, and keep it only if the step gets
-      faster.  Finite-cf drop accounting is per chunk (the a2a_dropped
-      counter still surfaces every drop).
+      tests/test_pipeline_structure.py).  It moves the SAME total bytes as
+      'a2a'; whether the overlap shortens a step on four cards is not
+      measured yet, so 'a2a' stays the default.  Finite-cf drop accounting
+      is per chunk.
     """
 
     schema: FeatureSchema
-    param_dtype: jnp.dtype = jnp.float32
-    num_groups: int | None = None  # None -> one table per field (fastest)
+    param_dtype: Any = jnp.float32
+    num_groups: int | None = None  # None -> one table per field
     pack_rows: bool = True
-    # Expose the stacked gather output as a flax perturbation so the train
-    # loop can read d(loss)/d(gathered rows) WITHOUT materialising a dense
-    # (V, D) cotangent — the tap for train/sparse_embed.py's touched-rows
-    # optimizer path.  No-op unless a 'perturbations' collection is passed.
-    perturb_out: bool = False
     engine: str = "gather"
-    mesh: object = None  # jax.sharding.Mesh for the explicit engines
+    mesh: Any = None  # jax.sharding.Mesh for the explicit engines
     capacity_factor: float | None = 2.0  # None = exact (never drop)
     a2a_dedup: bool = True
     a2a_chunks: int = 2  # pipelined engine's comm/compute overlap depth
 
-    def setup(self):
+    def __post_init__(self):
         if self.engine not in ENGINES:
-            raise ValueError(
-                f"engine={self.engine!r} not in {ENGINES}"
-            )
+            raise ValueError(f"engine={self.engine!r} not in {ENGINES}")
         if self.engine != "gather" and self.mesh is None:
             raise ValueError(
                 f"engine={self.engine!r} needs a mesh (pass the Trainer's)"
@@ -134,177 +134,131 @@ class StackedEmbedding(nn.Module):
         group_of, offset_in, group_vocab = _group_assignment(
             self.schema, self.num_groups
         )
-        self._group_of, self._offset_in = group_of, offset_in
-        self._packs = [
+        packs = [
             embedding_kernels.pack_factor(d, v) if self.pack_rows else 1
             for v in group_vocab
         ]
-        self._group_vocab = list(group_vocab)
-        # Keras Embedding default init is uniform(-0.05, 0.05); reference
-        # embed_reg l2 is applied by the train loop as decoupled weight decay.
-        # Physical rows are padded to a multiple of 8 so the tables stay
-        # row-shardable over small model-axis sizes.
-        self.tables = [
-            self.param(
-                f"table_{g}",
-                nn.initializers.uniform(scale=0.05),
-                (_pad8(-(-max(v, 1) // p)), p * d),
-                self.param_dtype,
-            )
-            for g, (v, p) in enumerate(zip(group_vocab, self._packs))
+        set_ = object.__setattr__
+        set_(self, "group_of", group_of)
+        set_(self, "offset_in", offset_in)
+        set_(self, "group_vocab", list(group_vocab))
+        set_(self, "packs", packs)
+
+    # -- params -----------------------------------------------------------
+    def table_shapes(self) -> list[tuple[int, int]]:
+        """Physical (rows, pack * D) per group; rows padded to a multiple
+        of 8 so the tables stay row-shardable over small model axes."""
+        d = self.schema.embed_dim
+        return [
+            (_pad8(-(-max(v, 1) // p)), p * d)
+            for v, p in zip(self.group_vocab, self.packs)
         ]
 
-    def pack(self, field_name: str) -> int:
-        return self._packs[self._group_of[field_name]]
+    def init(self, key) -> dict:
+        keys = jax.random.split(key, len(self.group_vocab))
+        return {
+            f"table_{g}": init_table(k, shape, self.param_dtype)
+            for g, (k, shape) in enumerate(zip(keys, self.table_shapes()))
+        }
 
-    def _fetch_wide(self, g: int, prows: jnp.ndarray) -> jnp.ndarray:
+    # -- lookups ------------------------------------------------------------
+    def pack(self, field_name: str) -> int:
+        return self.packs[self.group_of[field_name]]
+
+    def field_offset(self, field_name: str) -> int:
+        return self.offset_in[field_name]
+
+    def _fetch_wide(self, tables: dict, g: int, prows):
         """Fetch PHYSICAL rows ``prows`` of group table ``g`` through the
-        selected engine; returns prows.shape + (pack*D,)."""
-        table = self.tables[g]
+        engine; returns (prows.shape + (pack*D,), dropped count or None)."""
+        table = tables[f"table_{g}"]
         if self.engine == "gather":
-            return jnp.take(table, prows, axis=0)
+            return jnp.take(table, prows, axis=0), None
         from recsys_tpu.parallel import embedding_sharding as es
 
         if self.engine == "psum":
-            return es.sharded_gather(table, prows, self.mesh)
+            return es.sharded_gather(table, prows, self.mesh), None
         if self.engine == "dedup":
-            return es.sharded_gather_dedup(table, prows, self.mesh)
+            return es.sharded_gather_dedup(table, prows, self.mesh), None
         if self.engine == "a2a":
-            out, dropped = es.sharded_gather_a2a(
+            return es.sharded_gather_a2a(
                 table, prows, self.mesh,
                 capacity_factor=self.capacity_factor,
                 dedup=self.a2a_dedup, return_stats=True,
             )
-        else:  # a2a_pipelined
-            out, dropped = es.sharded_gather_a2a_pipelined(
-                table, prows, self.mesh, num_chunks=self.a2a_chunks,
-                capacity_factor=self.capacity_factor,
-                dedup=self.a2a_dedup, return_stats=True,
-            )
-        # overflow observability: the Trainer picks this up per step and
-        # reports history['a2a_dropped'] (see VERDICT.md round-1 weak #1)
-        self.sow("a2a_stats", "dropped", dropped)
-        return out
-
-    def _engine_gather(self, g: int, rows: jnp.ndarray) -> jnp.ndarray:
-        """Vocab-row gather via the engine (physical fetch + sub-select)."""
-        pack = self._packs[g]
-        prows = rows // pack if pack > 1 else rows
-        wide = self._fetch_wide(g, prows)
-        return embedding_kernels.packed_select(
-            wide, rows, pack, self.schema.embed_dim
+        return es.sharded_gather_a2a_pipelined(
+            table, prows, self.mesh, num_chunks=self.a2a_chunks,
+            capacity_factor=self.capacity_factor,
+            dedup=self.a2a_dedup, return_stats=True,
         )
 
-    def __call__(self, sparse_ids: jnp.ndarray) -> jnp.ndarray:
-        # group-batched: all of a group's field columns fetch in ONE engine
-        # call, so the explicit engines do one collective pair per group
-        # (num_groups=1 -> one a2a exchange for the whole batch)
+    def gather_rows(self, tables: dict, g: int, rows):
+        """Vocab-row gather via the engine (physical fetch + sub-select);
+        returns (embeddings, dropped count or None)."""
+        pack = self.packs[g]
+        prows = rows // pack if pack > 1 else rows
+        wide, dropped = self._fetch_wide(tables, g, prows)
+        return embedding_kernels.packed_select(
+            wide, rows, pack, self.schema.embed_dim
+        ), dropped
+
+    def embed(self, tables: dict, sparse_ids):
+        """(B, F) field-local ids -> ((B, F, D), [dropped counts]).
+
+        Group-batched: all of a group's field columns fetch in ONE engine
+        call, so the explicit engines do one collective pair per group."""
         by_group: dict[int, list[int]] = {}
         for j, f in enumerate(self.schema.sparse):
-            by_group.setdefault(self._group_of[f.name], []).append(j)
+            by_group.setdefault(self.group_of[f.name], []).append(j)
         cols: list = [None] * len(self.schema.sparse)
+        dropped = []
         for g, js in by_group.items():
             offs = jnp.asarray(
-                [self._offset_in[self.schema.sparse[j].name] for j in js],
+                [self.offset_in[self.schema.sparse[j].name] for j in js],
                 jnp.int32,
             )
             rows = sparse_ids[:, js].astype(jnp.int32) + offs[None, :]
-            emb = self._engine_gather(g, rows)  # (B, |js|, D)
+            emb, drop = self.gather_rows(tables, g, rows)  # (B, |js|, D)
+            if drop is not None:
+                dropped.append(drop)
             for i, j in enumerate(js):
                 cols[j] = emb[:, i, :]
-        out = jnp.stack(cols, axis=1)  # (B, F, D)
-        if self.perturb_out:
-            out = self.perturb("stacked_out", out)
-        return out
+        return jnp.stack(cols, axis=1), dropped
 
-    def lookup(self, field_name: str, ids: jnp.ndarray) -> jnp.ndarray:
-        """Embed `ids` (any shape) using `field_name`'s table slice."""
-        g = self._group_of[field_name]
-        rows = ids.astype(jnp.int32) + self._offset_in[field_name]
-        return self._engine_gather(g, rows)
+    def lookup(self, tables: dict, field_name: str, ids):
+        """Embed `ids` (any shape) using `field_name`'s table slice;
+        returns (embeddings, dropped count or None)."""
+        g = self.group_of[field_name]
+        rows = ids.astype(jnp.int32) + self.offset_in[field_name]
+        return self.gather_rows(tables, g, rows)
 
-    def pooled_lookup(
-        self, field_name: str, ids: jnp.ndarray, mask: jnp.ndarray,
-        *, mode: str = "mean",
-    ) -> jnp.ndarray:
-        """Masked-pooled embedding of a padded (B, L) id sequence.
+    def pooled_lookup(self, tables: dict, field_name: str, ids, mask, *,
+                      mode: str = "mean"):
+        """Masked-pooled embedding of a padded (B, L) id sequence; returns
+        ((B, D), dropped count or None)."""
+        g = self.group_of[field_name]
+        if self.engine == "gather" and self.packs[g] == 1 and ids.ndim == 2:
+            rows = ids.astype(jnp.int32) + self.offset_in[field_name]
+            return embedding_kernels.segment_sum_gather(
+                tables[f"table_{g}"], rows, mask, mode=mode
+            ), None
+        emb, dropped = self.lookup(tables, field_name, ids)
+        return embedding_kernels.pool(emb, mask, mode=mode), dropped
 
-        Unpacked tables route through the dispatch layer (which picks the
-        fused Pallas pooled-gather at lane-aligned widths); packed tables
-        use the packed gather + pool (the sub-slot select has no fused
-        kernel yet).
-        """
-        g = self._group_of[field_name]
-        if self.engine == "gather" and self._packs[g] == 1 and ids.ndim == 2:
-            from recsys_tpu.kernels import dispatch
-
-            rows = ids.astype(jnp.int32) + self._offset_in[field_name]
-            return dispatch.segment_sum_gather(
-                self.tables[g], rows, mask, mode=mode
-            )
-        return embedding_kernels.pool(
-            self.lookup(field_name, ids), mask, mode=mode
-        )
-
-    def table_for(self, field_name: str) -> jnp.ndarray:
+    def table_for(self, tables: dict, field_name: str):
         """The raw PHYSICAL (row-packed) group table holding `field_name`.
 
-        Do NOT index this with logical ids (+field_offset) — that was the
-        pre-packing pattern and now reads the wrong rows.  Use ``lookup`` /
-        ``pooled_lookup`` for embeddings or ``table_logical`` for a (V, D)
-        view; ``pack(field_name)`` gives the rows-per-physical-row factor.
+        Do NOT index this with logical ids (+field_offset): use ``lookup``
+        for embeddings or ``table_logical`` for a (V, D) view;
+        ``pack(field_name)`` gives the rows-per-physical-row factor.
         """
-        return self.tables[self._group_of[field_name]]
+        return tables[f"table_{self.group_of[field_name]}"]
 
-    def table_logical(self, field_name: str) -> jnp.ndarray:
+    def table_logical(self, tables: dict, field_name: str):
         """(V_group, D) logical view of `field_name`'s group table (padding
         rows from the packed layout sliced off)."""
-        g = self._group_of[field_name]
-        t = self.tables[g]
-        if self._packs[g] == 1:
-            return t[: self._group_vocab[g]]
-        d = self.schema.embed_dim
-        return t.reshape(-1, d)[: self._group_vocab[g]]
-
-    def field_offset(self, field_name: str) -> int:
-        return self._offset_in[field_name]
-
-
-class SparseLinear(nn.Module):
-    """Per-ID first-order weights: sum_f w[id_f] over a batch's sparse IDs.
-
-    The exact-FM first-order term for one-hot categorical inputs, without
-    materialising the one-hot (/root/reference/src/ctr/fm/model.py:44-47).
-    Grouped like StackedEmbedding for the same scatter-speed reason.
-    """
-
-    schema: FeatureSchema
-    num_groups: int | None = None
-    pack_rows: bool = True  # (V, 1) -> (ceil(V/128), 128); same win as tables
-
-    def setup(self):
-        group_of, offset_in, group_vocab = _group_assignment(
-            self.schema, self.num_groups
-        )
-        self._group_of, self._offset_in = group_of, offset_in
-        self._packs = [
-            embedding_kernels.pack_factor(1, v) if self.pack_rows else 1
-            for v in group_vocab
-        ]
-        self.weights = [
-            self.param(
-                f"w_{g}", nn.initializers.zeros,
-                (_pad8(-(-max(v, 1) // p)), p),
-            )
-            for g, (v, p) in enumerate(zip(group_vocab, self._packs))
-        ]
-
-    def __call__(self, sparse_ids: jnp.ndarray) -> jnp.ndarray:
-        total = 0.0
-        for j, f in enumerate(self.schema.sparse):
-            g = self._group_of[f.name]
-            rows = sparse_ids[:, j].astype(jnp.int32) + self._offset_in[f.name]
-            total = total + embedding_kernels.packed_gather(
-                self.weights[g], rows, self._packs[g], 1
-            )[..., 0]
-        return total
+        g = self.group_of[field_name]
+        t = tables[f"table_{g}"]
+        if self.packs[g] == 1:
+            return t[: self.group_vocab[g]]
+        return t.reshape(-1, self.schema.embed_dim)[: self.group_vocab[g]]

@@ -2,8 +2,8 @@
 
 The reference evaluates its "experts" serially and reuses ONE Expert instance
 for all of them (/root/reference/src/ctr/mmoe/model.py:68,86 — bug §2.6.7).
-TPU-first design: an expert bank is a single batched einsum over a stacked
-(E, in, hidden) weight tensor — E distinct experts, one MXU-friendly matmul,
+Here an expert bank is a single batched einsum over a stacked
+(E, in, hidden) weight tensor — E distinct experts, one batched matmul,
 no Python loop over experts and no expert parallelism needed at this scale
 (SURVEY.md §2.5 EP row).
 """

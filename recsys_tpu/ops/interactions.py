@@ -10,7 +10,7 @@ from __future__ import annotations
 import flax.linen as nn
 import jax.numpy as jnp
 
-from recsys_tpu.kernels import dispatch as ikernels
+from recsys_tpu.kernels import interactions as ikernels
 
 
 class FMInteraction(nn.Module):

@@ -1,56 +1,19 @@
-"""Dense-tower building blocks: MLP, Dice/PReLU activations.
+"""Dense-tower math as pure functions over explicit param dicts.
 
-Covers the capability of the reference's two duplicated DNN layers
-(/root/reference/src/ctr/layers/modules.py:114-135 and /root/reference/src/
-match/layers/modules.py:8-26) with the reference bugs fixed: BatchNorm is a
-proper flax module with learned state (the reference constructs a fresh BN
-inside ``call`` every trace, modules.py:131), and there is exactly ONE shared
-implementation.  Dice (/root/reference/src/ctr/layers/modules.py:327-337) is
-implemented as a stateless normalised gate.
+``mlp_init`` / ``mlp_apply`` are the flax-free MLP the DLRM path uses.
+Params keep flax's layout (``{"Dense_0": {"kernel", "bias"}, ...}``,
+kernel (in, out), bias (out,)) and init (LeCun-normal kernel, zero bias),
+so trees written by either side line up.  The flax modules for the other
+models live in :mod:`recsys_tpu.ops.linen`.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
-
-class Dice(nn.Module):
-    """DIN's adaptive activation: x * p + alpha * x * (1 - p), p = sigmoid(x_norm).
-
-    Reference semantics at /root/reference/src/ctr/layers/modules.py:327-337
-    (BN without scale/offset followed by a sigmoid gate with learned alpha).
-    Uses batch statistics in training and running stats in eval, matching
-    BatchNormalization(center=False, scale=False).
-    """
-
-    epsilon: float = 1e-9
-    momentum: float = 0.99
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, *, training: bool = False) -> jnp.ndarray:
-        alpha = self.param("alpha", nn.initializers.zeros, (x.shape[-1],))
-        norm = nn.BatchNorm(
-            use_running_average=not training,
-            use_bias=False,
-            use_scale=False,
-            momentum=self.momentum,
-            epsilon=self.epsilon,
-        )(x)
-        p = nn.sigmoid(norm)
-        return x * p + alpha * x * (1.0 - p)
-
-
-class PReLU(nn.Module):
-    """Parametric ReLU with a per-channel learned negative slope."""
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        alpha = self.param(
-            "alpha", nn.initializers.constant(0.25), (x.shape[-1],)
-        )
-        return jnp.where(x >= 0, x, alpha * x)
+_lecun_normal = jax.nn.initializers.lecun_normal()
 
 
 def resolve_activation(name: str | Callable) -> Callable:
@@ -58,125 +21,59 @@ def resolve_activation(name: str | Callable) -> Callable:
     if callable(name):
         return name
     table = {
-        "relu": nn.relu,
-        "sigmoid": nn.sigmoid,
-        "tanh": nn.tanh,
-        "gelu": nn.gelu,
-        "swish": nn.swish,
+        "relu": jax.nn.relu,
+        "sigmoid": jax.nn.sigmoid,
+        "tanh": jnp.tanh,
+        "gelu": jax.nn.gelu,
+        "swish": jax.nn.swish,
         "linear": lambda x: x,
         "identity": lambda x: x,
     }
     return table[name]
 
 
-import functools
-
-import jax
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
-def _fused_mlp(x, ws, bs, mm_bf16, interpret):
-    from recsys_tpu.kernels.pallas.mlp_tpu import mlp_fwd_pallas
-
-    return mlp_fwd_pallas(x, ws, bs, mm_bf16=mm_bf16, interpret=interpret)
+def dense_init(key, in_dim: int, out_dim: int) -> dict:
+    return {
+        "kernel": _lecun_normal(key, (in_dim, out_dim), jnp.float32),
+        "bias": jnp.zeros((out_dim,), jnp.float32),
+    }
 
 
-def _fused_mlp_fwd(x, ws, bs, mm_bf16, interpret):
-    return _fused_mlp(x, ws, bs, mm_bf16, interpret), (x, ws, bs)
+def dense_apply(p: dict, x: jnp.ndarray, dtype=None) -> jnp.ndarray:
+    """``x @ kernel + bias``; ``dtype`` casts inputs and params to the
+    compute dtype (flax ``nn.Dense(dtype=...)`` semantics)."""
+    k, b = p["kernel"], p["bias"]
+    if dtype is not None:
+        x, k, b = x.astype(dtype), k.astype(dtype), b.astype(dtype)
+    return jnp.dot(x, k) + b
 
 
-def _fused_mlp_bwd(mm_bf16, interpret, res, g):
-    from recsys_tpu.kernels.pallas.mlp_tpu import mlp_bwd_pallas
-
-    x, ws, bs = res
-    out = mlp_bwd_pallas(x, g, ws, bs, mm_bf16=mm_bf16, interpret=interpret)
-    n = len(ws)
-    dx, dws, dbs = out[0], list(out[1:n + 1]), list(out[n + 1:])
-    return dx.astype(x.dtype), dws, dbs
-
-
-_fused_mlp.defvjp(_fused_mlp_fwd, _fused_mlp_bwd)
-
-
-class FusedMLP(nn.Module):
-    """Relu MLP stack through the fused Pallas forward/backward kernels
-    (kernels/pallas/mlp_tpu.py): weights stay VMEM-resident, hidden
-    activations never touch HBM, the backward recomputes them and
-    accumulates dW/db in VMEM across batch tiles.
-
-    Numerically the same function as ``MLP(hidden_units, out_dim=...)``
-    with relu, no BN, no dropout (parity-tested); matmuls use bf16 inputs
-    with f32 accumulation by default (``mm_bf16=False`` for exact f32).
-    Param names are ``kernel_i``/``bias_i`` (bias shaped (1, D)).
-
-    Measured verdict (v5e, B=16384, round 3) — **opt-in, not default**:
-    standalone the fused forward beats XLA's layer-by-layer path (bottom
-    13->512->256->16: 1.90 vs 2.56 ms; top 367->1024x2->512->256->1: 2.66
-    vs 2.82 ms) but the recompute backward loses on the deep top tower
-    (3.58 vs 2.84 ms) and END-TO-END the bench regresses 1.88M -> 1.25M
-    ex/s: inside the full step XLA fuses the embedding gather / dot-
-    interaction / loss into the MLP matmul chain, and the opaque
-    pallas_call boundary forfeits more than the kernel saves.  Same
-    policy as the FM kernel: ships for composition experiments
-    (DLRM(fused_mlps=True), bench.py --fused-mlps), XLA by default.
-    """
-
-    hidden_units: Sequence[int]
-    out_dim: int
-    mm_bf16: bool = True
-    tile_b: int = 512
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, *, training: bool = False) -> jnp.ndarray:
-        from recsys_tpu.kernels import use_pallas
-        from recsys_tpu.kernels.pallas.mlp_tpu import mlp_fwd_pallas  # noqa: F401
-
-        dims = [x.shape[-1], *self.hidden_units, self.out_dim]
-        ws = [
-            self.param(f"kernel_{i}", nn.initializers.lecun_normal(),
-                       (dims[i], dims[i + 1]))
-            for i in range(len(dims) - 1)
-        ]
-        bs = [
-            self.param(f"bias_{i}", nn.initializers.zeros, (1, dims[i + 1]))
-            for i in range(len(dims) - 1)
-        ]
-        return _fused_mlp(x.astype(jnp.float32), ws, bs, self.mm_bf16,
-                          not use_pallas())
+def mlp_init(key, in_dim: int, hidden_units: Sequence[int],
+             out_dim: int) -> dict:
+    """Params of ``len(hidden_units)`` activated layers and one linear
+    ``out_dim`` projection."""
+    dims = [in_dim, *hidden_units, out_dim]
+    keys = jax.random.split(key, len(dims) - 1)
+    return {
+        f"Dense_{i}": dense_init(keys[i], dims[i], dims[i + 1])
+        for i in range(len(dims) - 1)
+    }
 
 
-class MLP(nn.Module):
-    """Stack of Dense layers with optional entry BatchNorm and dropout.
-
-    `hidden_units` are the intermediate widths; `out_dim` (if set) appends a
-    final linear projection with no activation.  `batch_norm=True` normalises
-    the input once before the stack — the reference ctr DNN's behaviour
-    (modules.py:129-131) — rather than per layer.  `dtype` sets the COMPUTE
-    dtype (params stay float32): pass jnp.bfloat16 to run the matmuls on the
-    MXU's native precision.
-    """
-
-    hidden_units: Sequence[int]
-    activation: str = "relu"
-    out_dim: int | None = None
-    dropout_rate: float = 0.0
-    batch_norm: bool = False
-    use_dice: bool = False
-    dtype: jnp.dtype | None = None
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, *, training: bool = False) -> jnp.ndarray:
-        if self.batch_norm:
-            x = nn.BatchNorm(use_running_average=not training)(x)
-        act = None if self.use_dice else resolve_activation(self.activation)
-        for width in self.hidden_units:
-            x = nn.Dense(width, dtype=self.dtype)(x)
-            if self.use_dice:
-                x = Dice()(x, training=training)
-            else:
-                x = act(x)
-            if self.dropout_rate > 0.0:
-                x = nn.Dropout(self.dropout_rate, deterministic=not training)(x)
-        if self.out_dim is not None:
-            x = nn.Dense(self.out_dim, dtype=self.dtype)(x)
-        return x
+def mlp_apply(params: dict, x: jnp.ndarray, *,
+              activation: str | Callable = "relu",
+              dropout_rate: float = 0.0, training: bool = False,
+              rng=None, dtype=None) -> jnp.ndarray:
+    """Activated hidden layers, each followed by dropout in training
+    (needs ``rng``), then the linear output layer."""
+    act = resolve_activation(activation)
+    n_hidden = len(params) - 1
+    for i in range(n_hidden):
+        x = act(dense_apply(params[f"Dense_{i}"], x, dtype))
+        if dropout_rate > 0.0 and training:
+            if rng is None:
+                raise ValueError("dropout in training needs an rng")
+            rng, sub = jax.random.split(rng)
+            keep = jax.random.bernoulli(sub, 1.0 - dropout_rate, x.shape)
+            x = jnp.where(keep, x / (1.0 - dropout_rate), 0.0).astype(x.dtype)
+    return dense_apply(params[f"Dense_{n_hidden}"], x, dtype)

@@ -15,8 +15,7 @@ is replicated per device).  Two complementary paths:
    `model` axis (each global row lives on exactly one shard, so the sum IS
    the lookup).  The backward pass through this code is the local
    scatter-add each shard needs — no gradient all-to-all for table rows.
-   This form is the substrate for the Pallas lookup kernel and for
-   dedup/capacity optimisations.
+   This form is the substrate for dedup/capacity optimisations.
 
 Also provides ``unique_with_counts_static`` — the static-shape dedup step
 for the ID exchange (SURVEY.md §7.3 "duplicate-ID dedup before all-to-all").
@@ -82,7 +81,7 @@ def sharded_gather_dedup(
     CTR batches repeat hot IDs heavily; deduping before the cross-shard
     exchange cuts the psum payload's effective information (XLA still moves
     the same padded buffer, but the local gather + backward scatter-add
-    touch each unique row once — the win the Pallas kernel exploits).
+    touch each unique row once).
     """
 
     def local_fn(table_shard, rows_local):
@@ -283,8 +282,7 @@ def sharded_gather_a2a_pipelined(
     chunk the local gather followed by its vector all-to-all.  With the
     chunks' collectives data-independent of each other's compute, XLA's
     latency-hiding scheduler can run chunk k's return exchange while chunk
-    k+1's local gather computes — the explicit overlap STATUS.md's round-1
-    gap called for.  The independence structure is PROVEN at the jaxpr
+    k+1's local gather computes.  The independence structure is PROVEN at the jaxpr
     level by tests/test_pipeline_structure.py: each return exchange
     transitively depends on its own id exchange only.
 

@@ -1,11 +1,11 @@
 """Device mesh construction and sharding helpers.
 
-The TPU-native replacement for the reference's
+The JAX replacement for the reference's
 ``tf.distribute.MirroredStrategy`` (every train script, e.g.
 /root/reference/src/ctr/fm/train.py:43-44): ONE ``jax.sharding.Mesh`` with a
 ``data`` axis (batch / data-parallel) and a ``model`` axis (embedding-table
 row sharding).  Gradient all-reduces are emitted by XLA from jit's sharding
-propagation — no NCCL, no hand-written collectives in the train loop.
+propagation (NCCL on GPUs) — no hand-written collectives in the train loop.
 """
 from __future__ import annotations
 
@@ -35,15 +35,17 @@ def make_mesh(
 
 
 def make_multihost_mesh(model: int = 1) -> Mesh:
-    """(data, model) mesh for multi-host pods: DCN-aware axis order.
+    """(data, model) mesh for several processes, host-aware axis order.
 
     The `model` axis (embedding-table row sharding: the all-to-all /
-    psum-heavy traffic) is laid out INSIDE a host so its collectives ride
-    ICI; the `data` axis factors as hosts x remaining-local-devices, so the
-    gradient all-reduce crosses DCN only on its host-level component — the
-    scaling-book recipe for hybrid DCN/ICI meshes.  Single-process falls
-    back to :func:`make_mesh` (used by the virtual-device tests; real
-    multi-host requires jax.distributed.initialize()).
+    psum-heavy traffic) is laid out INSIDE a host, where the GPUs are
+    joined all to all by NVLink; the `data` axis factors as hosts x
+    remaining-local-devices, so the gradient all-reduce crosses the
+    slower host-to-host network only on its host-level component.  Within
+    one host every GPU reaches every other at the same rate, so no axis
+    order is preferred there.  Single-process falls back to
+    :func:`make_mesh` (used by the virtual-device tests; real multi-host
+    requires jax.distributed.initialize()).
     """
     n_proc = jax.process_count()
     if n_proc == 1:
@@ -55,9 +57,8 @@ def make_multihost_mesh(model: int = 1) -> Mesh:
         raise ValueError(
             f"model axis {model} must divide local device count {n_local}"
         )
-    # process_is_granule: the DCN factor counts HOSTS.  The default
-    # (slice granules) breaks on single-slice multi-host pods, where all
-    # processes share slice_index 0.
+    # process_is_granule: the outer factor counts HOSTS (processes), not
+    # the default's slice granules.
     devs = mesh_utils.create_hybrid_device_mesh(
         [n_local // model, model], [n_proc, 1], process_is_granule=True
     )
@@ -83,7 +84,7 @@ def shard_batch(batch: dict, mesh: Mesh | None) -> dict:
 
     GLOBAL contract: every process passes the full global arrays.  The
     ``embaux*`` keys (fused-update host prep under GLOBAL prep: sorted-id
-    chunks, gather permutation, chunk pointers — train/streaming_embed.py)
+    chunks and the gather permutation — train/streaming_embed.py)
     are global batch metadata, not per-example rows; they replicate.
     Under host-local prep (leading stream axis, ndim bumped by one) they
     are per-data-shard streams and shard over `data` like the batch rows.
@@ -95,12 +96,12 @@ def shard_batch(batch: dict, mesh: Mesh | None) -> dict:
 
     def put(k, x):
         if k.startswith("embaux") and np.ndim(x) in (2, 3):
-            # global-prep aux: ids (nc, ch) / idx (n,) / ptr (nb+1,) ->
-            # replicate; local-prep aux has a leading (Sd, ...) stream
-            # axis -> shard it over data.  idx is 1-D global / 2-D local.
+            # global-prep aux: ids (nc, ch) / idx (n,) -> replicate;
+            # local-prep aux has a leading (Sd, ...) stream axis -> shard
+            # it over data.  idx is 1-D global / 2-D local.
             is_local = (np.ndim(x) == 3) or (
                 np.ndim(x) == 2 and k.endswith("_idx")
-            ) or (np.ndim(x) == 2 and k.endswith("_ptr"))
+            )
             return jax.device_put(x, s if is_local else r)
         if k.startswith("embaux"):
             return jax.device_put(x, r)
@@ -117,7 +118,7 @@ def shard_batch(batch: dict, mesh: Mesh | None) -> dict:
 def shard_batch_local(batch: dict, mesh: Mesh | None) -> dict:
     """Assemble a GLOBAL device batch from this process's LOCAL arrays.
 
-    The host-local multihost data contract (the TPU-native replacement for
+    The host-local multihost data contract (the JAX replacement for
     MirroredStrategy's per-replica feeding, /root/reference/src/ctr/fm/
     train.py:43-44): each process passes only the rows it feeds — batch
     arrays shaped (B_local, ...) and local-prep ``embaux*`` streams shaped

@@ -2,7 +2,7 @@
 
 Measures DLRM train-step throughput at 1, 2, ..., N devices on the current
 backend (real chips when available; the virtual CPU mesh otherwise — which
-validates mechanics, not ICI bandwidth) and reports examples/s plus scaling
+validates mechanics, not interconnect bandwidth) and reports examples/s plus scaling
 efficiency vs the single-device run, per the SURVEY.md §6 performance axis.
 
     python -m recsys_tpu.tools.scaling [--per-device-batch 2048] [--steps 10]
@@ -55,74 +55,6 @@ def measure(per_device_batch: int, steps: int, vocab: int, embed_dim: int):
     return results
 
 
-def project_v5e_slice(
-    step_ms: float = 8.37,
-    n_cot_rows: int = 26 * 16384,
-    embed_dim: int = 16,
-    dense_params: int | None = None,
-    ici_gbps: float = 45.0,
-    max_chips: int = 16,
-):
-    """Multi-chip DP step-time model from the measured single-chip phases.
-
-    No multi-chip hardware exists in this environment, so the scaling
-    axis is bounded analytically from quantities the repo HAS measured:
-    the single-chip fused DLRM step (BENCH_BREAKDOWN: 8.37 ms at
-    B=16384) and the per-step wire payloads of the fused-DP path —
-    ONE (n, D) f32 cotangent all-gather (the dominant transfer; the same
-    bytes under the global and host-local contracts) plus the dense-param
-    gradient all-reduce.  ``ici_gbps`` is the public per-direction v5e
-    ICI link figure (How to Scale Your Model, jax-ml.github.io/
-    scaling-book: 4.5e10 B/s); per-chip batch is held at the bench's
-    16384 (weak scaling, the production regime).
-
-    Reported per chip count: comm-time, serialized efficiency
-    (step+comm, no overlap — pessimistic) and overlapped efficiency
-    (max(step, comm) — what the a2a_pipelined-style schedules target).
-    A PROJECTION, labeled as such: the number multi-chip hardware would
-    check, not a measurement.
-    """
-    if dense_params is None:
-        # bench DLRM dense tower: bottom 13-512-256-16, top 367-1024-
-        # 1024-512-256-1
-        dims = [13, 512, 256, 16]
-        dense_params = sum(dims[i] * dims[i + 1] + dims[i + 1]
-                           for i in range(3))
-        t = [367, 1024, 1024, 512, 256, 1]
-        dense_params += sum(t[i] * t[i + 1] + t[i + 1] for i in range(5))
-    cot_bytes = n_cot_rows * embed_dim * 4
-    grad_bytes = dense_params * 4
-    bw = ici_gbps * 1e9
-    out = []
-    n = 2
-    while n <= max_chips:
-        # all-gather: each chip receives (n-1)/n of the global payload;
-        # ring all-reduce moves ~2x(n-1)/n of the payload per chip
-        t_ag = cot_bytes * (n - 1) / n / bw * 1e3
-        t_ar = 2 * grad_bytes * (n - 1) / n / bw * 1e3
-        comm = t_ag + t_ar
-        out.append({
-            "chips": n,
-            "comm_ms": round(comm, 3),
-            "cot_allgather_ms": round(t_ag, 3),
-            "dense_allreduce_ms": round(t_ar, 3),
-            "eff_serialized": round(step_ms / (step_ms + comm), 3),
-            "eff_overlapped": round(
-                step_ms / max(step_ms, comm), 3
-            ),
-        })
-        n *= 2
-    return {
-        "kind": "projection (no multi-chip hardware in this environment)",
-        "model": "weak-scaling DP, per-chip batch 16384, fused-adam path",
-        "single_chip_step_ms": step_ms,
-        "cot_allgather_bytes": cot_bytes,
-        "dense_allreduce_bytes": grad_bytes,
-        "ici_gbytes_per_s_per_direction": ici_gbps,
-        "per_chips": out,
-    }
-
-
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--per-device-batch", type=int, default=2048)
@@ -130,9 +62,6 @@ def main(argv=None):
     p.add_argument("--vocab", type=int, default=10_000)
     p.add_argument("--embed-dim", type=int, default=16)
     p.add_argument("--out", default=None)
-    p.add_argument("--step-ms", type=float, default=8.37,
-                   help="measured single-chip step for the projection "
-                   "(BENCH_BREAKDOWN r4: 8.37 ms)")
     args = p.parse_args(argv)
     dev = jax.devices()[0]
     measured = measure(args.per_device_batch, args.steps, args.vocab,
@@ -142,11 +71,10 @@ def main(argv=None):
         "device_kind": dev.device_kind,
         "kind": (
             "mechanics only (virtual CPU mesh: validates the SPMD "
-            "program + collective placement, NOT ICI bandwidth)"
+            "program + collective placement, NOT interconnect bandwidth)"
             if dev.platform == "cpu" else "measured"
         ),
         "measured": measured,
-        "v5e_projection": project_v5e_slice(step_ms=args.step_ms),
     }
     out = json.dumps(rep, indent=1)
     print(out)

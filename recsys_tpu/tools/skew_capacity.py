@@ -12,8 +12,7 @@ each way (tools/comm_bytes.py), so the smallest cf with zero drops IS
 the engine's wire cost under that traffic.  Skew makes per-owner bucket
 sizes uneven (hot shards overflow first); dedup collapses duplicate hot
 ids BEFORE bucketing, so skewed traffic needs a smaller cf than uniform
-— the distributed-path counterpart of the single-chip gather being
-skew-invariant (tools/dedup_probe.py).
+— a distributed-path saving that uniform traffic does not show.
 
 Runs on the virtual CPU mesh (drop counts are a program property, not a
 bandwidth measurement).  Run:

@@ -5,8 +5,8 @@ The reference comments its ModelCheckpoint blocks out everywhere
 checkpointing in two forms:
 
 * :func:`save` / :func:`restore` — the whole TrainState pytree gathered to
-  host and serialised with flax msgpack.  Simple, adequate while every
-  param fits one host.
+  host and written as one numpy ``.npz`` of its leaves, keyed by tree
+  path.  Simple, adequate while every param fits one host.
 * :func:`save_sharded` / :func:`restore_sharded` — shard-parallel
   checkpointing for the model-axis story: each process writes only the
   array SHARDS it owns (replica 0 of each distinct block), and restore
@@ -22,22 +22,43 @@ from __future__ import annotations
 import json
 import os
 
-import flax.serialization
 import jax
 import numpy as np
 
 
 def save(path: str, state) -> None:
+    """Write ``state``'s leaves to ``path`` as an ``.npz`` keyed by
+    ``jax.tree_util.keystr`` of each leaf's path (the file name is used
+    as given)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    host_state = jax.device_get(state)
+    flat = jax.tree_util.tree_leaves_with_path(jax.device_get(state))
+    arrays = {jax.tree_util.keystr(p): np.asarray(x) for p, x in flat}
     with open(path, "wb") as f:
-        f.write(flax.serialization.to_bytes(host_state))
+        np.savez(f, **arrays)
 
 
 def restore(path: str, template):
-    """Restore into the structure of ``template`` (an initialised state)."""
-    with open(path, "rb") as f:
-        return flax.serialization.from_bytes(template, f.read())
+    """Restore into the structure of ``template`` (an initialised state).
+
+    Every template leaf must be in the file with the same shape; dtypes
+    follow the template (numpy stores bf16 as raw 2-byte records)."""
+    flat, treedef = jax.tree_util.tree_flatten_with_path(template)
+    out = []
+    with np.load(path, allow_pickle=False) as data:
+        for p, leaf in flat:
+            key = jax.tree_util.keystr(p)
+            if key not in data:
+                raise ValueError(f"checkpoint {path!r} has no leaf {key}")
+            arr = data[key]
+            want = np.dtype(getattr(leaf, "dtype", arr.dtype))
+            if arr.shape != np.shape(leaf):
+                raise ValueError(
+                    f"leaf {key}: checkpoint shape {arr.shape} != "
+                    f"{np.shape(leaf)}"
+                )
+            out.append(arr.view(want) if arr.dtype.kind == "V"
+                       else arr.astype(want))
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 # -- shard-parallel checkpointing ------------------------------------------

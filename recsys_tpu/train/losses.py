@@ -5,7 +5,7 @@ NaN-prone ``log(1 - sigmoid(x))`` constructions (bug §2.6.12 at
 /root/reference/src/match/ncf/model.py:75-77, /root/reference/src/match/
 sasrec/model.py:93-95) with ``log_sigmoid`` identities, and the
 misconfigured ``tf.nn.sampled_softmax_loss`` (bug §2.6.14) with the idiomatic
-TPU retrieval loss: in-batch sampled softmax with logQ correction.
+retrieval loss: in-batch sampled softmax with logQ correction.
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ def in_batch_sampled_softmax(
     row i's query; all other rows are negatives.  ``item_log_q`` (B,) is the
     log sampling probability of each item (its popularity in the batch
     distribution) subtracted from the logits so frequent items are not
-    over-penalised as negatives.  The idiomatic TPU replacement for
+    over-penalised as negatives.  The idiomatic accelerator replacement for
     tf.nn.sampled_softmax_loss (SURVEY.md §2.5).
     """
     logits = (
@@ -139,7 +139,7 @@ def sampled_softmax(
     negative equal to the example's positive — like TF's
     remove_accidental_hits=True default (a Zipfian sampler collides with
     popular positives often).  In-batch negatives
-    (:func:`in_batch_sampled_softmax`) remain the idiomatic TPU default.
+    (:func:`in_batch_sampled_softmax`) remain the default.
     """
     pos_logit = jnp.sum(
         query_embs * pos_embs, axis=-1, keepdims=True

@@ -4,7 +4,7 @@ In-framework replacement for the reference's post-training
 ``faiss.IndexFlatIP`` flow (/root/reference/src/match/dssm/
 dssm_train.py:74-78, /root/reference/src/match/fm/train.py:71-75): score
 every catalog item against every query ON DEVICE with one batched matmul
-(MXU work, bf16-friendly) and take ``jax.lax.top_k`` — no host round-trip,
+(bf16-friendly) and take ``jax.lax.top_k`` — no host round-trip,
 usable inside the jitted eval step.
 
 The sharded variant splits the catalog over the ``model`` mesh axis inside
@@ -24,27 +24,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from recsys_tpu.parallel.mesh import pad_to_multiple, MODEL_AXIS
 
 
-# Fused-kernel verdict (re-measured round 3, artifacts/kernel_sweep_topk.*):
-# with tile_n=2048 the Pallas streaming kernel is a WASH against the
-# materialised einsum+lax.top_k — 1.02x/0.95x at N=100k, 1.00x at N=1M
-# (Q=1024, k=10; indices exact).  The round-2 sweep on the same shapes had
-# measured 1.21x/1.05x/1.00x (the 1.6-1.84x once quoted here came from
-# uncommitted probes and did not reproduce); the XLA path got ~2x faster
-# between rounds, eating the margin.  Policy as for the FM kernel: a wash
-# ships opt-in, XLA is the default — set RECSYS_TPU_FUSED_TOPK=1 (or call
-# kernels.pallas.topk_tpu.topk_scores_pallas directly) to opt in.  The
-# kernel's real win remains memory: it never materialises the (Q, N) score
-# matrix, so it serves as the large-catalog fallback where XLA's full
-# einsum would OOM (topk_scores_streaming covers that on the XLA side).
-_FUSED_TOPK_MAX_K = 16
-
-
-def _fused_topk_enabled() -> bool:
-    import os
-
-    return os.environ.get("RECSYS_TPU_FUSED_TOPK", "") in ("1", "true")
-
-
 def topk_scores(
     query_embs: jnp.ndarray,
     item_embs: jnp.ndarray,
@@ -52,21 +31,11 @@ def topk_scores(
     normalize: bool = False,
 ):
     """Dense brute-force top-k: (Q, D) x (N, D) -> (values, indices) (Q, k).
-
-    With RECSYS_TPU_FUSED_TOPK=1, small-k TPU calls route to the fused
-    Pallas score+select kernel, which streams the catalog through VMEM and
-    never materialises the (Q, N) score matrix (see the verdict note
-    above — speed is a wash vs XLA as of round 3, so it ships opt-in)."""
+    Materialises the (Q, N) score matrix; :func:`topk_scores_streaming`
+    bounds memory for large catalogs."""
     if normalize:
         query_embs = _l2(query_embs)
         item_embs = _l2(item_embs)
-    from recsys_tpu.kernels import use_pallas
-
-    if (use_pallas() and _fused_topk_enabled()
-            and k <= _FUSED_TOPK_MAX_K and item_embs.shape[0] > k):
-        from recsys_tpu.kernels.pallas.topk_tpu import topk_scores_pallas
-
-        return topk_scores_pallas(query_embs, item_embs, k=k)
     scores = jnp.einsum(
         "qd,nd->qn", query_embs, item_embs, preferred_element_type=jnp.float32
     )
@@ -139,19 +108,11 @@ def topk_scores_streaming(
 
     Peak memory is O(Q * (tile + k)) instead of the O(Q * N) score matrix of
     :func:`topk_scores` — the single-chip path for catalogs where Q*N scores
-    would blow HBM (N ~ millions).  On TPU at small k this routes to the
-    fused Pallas kernel, which has the same O(Q * (tile + k)) bound and was
-    measured 1.84x the materialised path at N=1M (see win-band note above).
+    would not fit device memory (N ~ millions).
     """
     if normalize:
         query_embs = _l2(query_embs)
         item_embs = _l2(item_embs)
-    from recsys_tpu.kernels import use_pallas
-
-    if use_pallas() and k <= _FUSED_TOPK_MAX_K and item_embs.shape[0] > k:
-        from recsys_tpu.kernels.pallas.topk_tpu import topk_scores_pallas
-
-        return topk_scores_pallas(query_embs, item_embs, k=k)
     n, d = item_embs.shape
     q = query_embs.shape[0]
     pad = pad_to_multiple(n, tile) - n

@@ -2,17 +2,15 @@
 
 Why: differentiating through an embedding gather makes XLA materialise a
 dense (V, D) cotangent by scatter-add, and a dense optimizer then reads and
-writes the full table plus both Adam moments every step.  On the DLRM-Criteo
-bench (26 x 100k-row tables, D=16, batch 16384, TPU v5e) that dense
-backward+update path costs 6.3 ms of the 14.2 ms step — 44% — measured by
-stopping table gradients (7.9 ms without).  Production recsys systems update
-only the rows a batch touches; this module is that path, TPU-style:
+writes the full table plus both Adam moments every step.  Production recsys
+systems update only the rows a batch touches; this module is that path:
 
-  1. ``StackedEmbedding(perturb_out=True)`` taps the gather output through a
-     flax perturbation, so ``jax.grad`` w.r.t. the perturbation yields the
-     per-occurrence cotangent (B, F, D) — 27 MB instead of a 166 MB dense
-     table cotangent — while the tables themselves are closed over
-     (not differentiated).
+  1. the model's perturbation tap on the stacked gather output
+     (``DLRM(sparse_embed_grads=True)``, or the flax
+     ``StackedEmbedding(perturb_out=True)``) makes ``jax.grad`` w.r.t. the
+     perturbation yield the per-occurrence cotangent (B, F, D) — 27 MB
+     instead of a 166 MB dense table cotangent at bench shapes — while the
+     tables themselves are closed over (not differentiated).
   2. Per table group: ids are deduplicated SORT-FREE (scatter-min of
      occurrence positions + compact scatter-add; see ``_dedup``) and the
      cotangent is summed per unique physical row (exact, duplicates summed
@@ -224,9 +222,7 @@ def init_state(tables: dict, kind: str, plan: EmbedPlan) -> dict:
 def _dedup(rows: jnp.ndarray, cot: jnp.ndarray, vocab: int):
     """Sort-free exact dedup.
 
-    TPU sorts are slow (bitonic passes on the VPU): ``jnp.unique(size=n)``
-    made the whole sparse path 3x SLOWER than dense Adam (48 ms vs 14 ms on
-    the DLRM bench step).  Instead: scatter-min each occurrence's position
+    No sort (``jnp.unique(size=n)`` sorts): scatter-min each occurrence's position
     into a tiny (V,) int32 buffer to find first occurrences, then
     scatter-add the cotangent into a compact (n, D) buffer keyed by the
     first-occurrence position — exact duplicate summing with only O(V) int32
@@ -271,9 +267,8 @@ def lazy_adam_update(
     Structured as pure read-modify-write scatter chains (scatter-mul then
     scatter-add, with gathers only AFTER a buffer's final write): a
     gather-then-scatter on the same donated buffer makes XLA's copy
-    insertion clone the whole (V, D) buffer — measured 373 copy ops and
-    9.4 ms/step of copies on the DLRM bench, scaling with V — while a
-    sequential RMW chain aliases in place.
+    insertion clone the whole (V, D) buffer, a cost that scales with V,
+    while a sequential RMW chain aliases in place.
     """
     vocab = table.shape[0]
     d = table.shape[1] // pack

@@ -1,23 +1,21 @@
-"""Fused streaming dense-Adam updates for embedding tables.
+"""Dense-Adam / rowwise-AdaGrad table updates from the perturbation tap.
 
-The production embedding-update path on a single chip: EXACT dense-Adam
-semantics (same math as optax.adam on the dense-scatter gradient — every
-row decayed, duplicate ids summed) at ~2x the speed, by routing the
-backward through the fused Pallas kernel of
-kernels/pallas/embedding_update_tpu.py instead of XLA's scatter-add +
-optax elementwise pass.  Measured on the DLRM bench (26 x 100k packed
-tables, B=16384, v5e): 7.7 ms -> 3.6 ms for backward+update.
+The ``fused_adam`` / ``fused_rowwise_adagrad`` embedding path: EXACT
+dense-optimizer semantics (the same math as optax.adam on the dense
+scatter-add gradient -- every row decayed, duplicate ids summed) without
+differentiating through the tables.
 
 Composition per step and table group:
   1. HOST (numpy, runs in the Trainer's prefetch thread): stable-argsort
-     the batch's vocab ids by physical row, pad each table-block's segment
-     to CH-multiples at a STATIC total chunk count (no recompiles), emit
-     (ids2d, idx, cptr) — :func:`host_prep_group` / :func:`make_host_prep`.
-  2. XLA: permute the (n, D) cotangent rows into sorted order with ONE
-     narrow gather per group (pipelined-concurrent across groups — this is
-     what dissolved round-1's 'parked' 3.4 ms permute blocker).
-  3. Pallas: blocked one-hot-matmul gradient accumulation + in-VMEM Adam,
-     one streaming pass over table+moments.
+     the batch's vocab ids by physical row and pad each table block's
+     segment to CH-multiples at a STATIC total chunk count (no recompiles),
+     emitting (ids2d, idx, cptr) -- :func:`host_prep_group` /
+     :func:`make_host_prep`.
+  2. XLA: permute the (n, D) cotangent rows into that order with one
+     narrow gather per group.
+  3. XLA: scatter-add the rows into a dense gradient and apply the
+     optimizer in one elementwise pass over table and moments
+     (:func:`_xla_group_update`).
 
 Like train/sparse_embed.py, the tables are closed over (not
 differentiated) and the per-occurrence cotangent arrives through the
@@ -35,6 +33,7 @@ import jax.numpy as jnp
 
 from recsys_tpu.train.sparse_embed import EmbedPlan
 
+# host-prep geometry: table rows per block, ids per chunk
 DEFAULT_BLOCK = 512
 DEFAULT_CH = 256
 
@@ -47,7 +46,7 @@ def host_prep_group(
     rows: np.ndarray, *, pack: int, vp: int, block: int = DEFAULT_BLOCK,
     ch: int = DEFAULT_CH, shards: int = 1, use_native: bool = True,
 ):
-    """Sort/bucket one group's vocab-row ids for the fused kernel.
+    """Sort/bucket one group's vocab-row ids for the table update.
 
     rows: (n,) int32 vocab ids (field offsets already applied).
     Returns (ids2d (nc_max, ch) int32, idx (nc_max*ch,) int32,
@@ -56,9 +55,9 @@ def host_prep_group(
     ``shards`` > 1 (model-axis row sharding, vp % shards == 0) aligns the
     block boundaries to the shard boundaries: shard ``s`` owns physical
     rows [s*vs, (s+1)*vs) split into nb_s = ceil(vs/block) blocks, so
-    device ``s`` can run the SAME streaming kernel over its local table
-    with ``cptr[s*nb_s : (s+1)*nb_s + 1]`` and ids shifted by
-    ``s*vs*pack`` — see apply_updates_fused.  The sort key (physical row)
+    shard ``s``'s rows occupy the chunk window
+    ``cptr[s*nb_s : (s+1)*nb_s + 1]``; the device update rebases ids by
+    ``s*vs*pack`` (apply_updates_fused).  The sort key (physical row)
     is unchanged; only where the block fences fall moves.
 
     The native C++ counting-sort path (native/recsys_native.cc fused_prep,
@@ -145,10 +144,10 @@ def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK,
     data-axis shards this process feeds) and each slice is sorted
     INDEPENDENTLY, so host work is O(rows this process holds), never
     O(global batch).  Aux arrays gain a leading ``data_shards`` axis
-    (stream-per-shard) that apply_updates_fused consumes via the kernel's
-    multi-stream form; under multi-process feeding the leading axis is
-    this process's share and jax.make_array_from_process_local_data
-    assembles the global (total_data_shards, ...) arrays.
+    (stream-per-shard) that apply_updates_fused consumes stream by
+    stream; under multi-process feeding the leading axis is this
+    process's share and jax.make_array_from_process_local_data assembles
+    the global (total_data_shards, ...) arrays.
     """
     geoms = []
     for g in range(len(plan.table_names)):
@@ -170,12 +169,11 @@ def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK,
                 sparse[:, j].astype(np.int32) + off
                 for j, off in zip(cols, offs)
             ])
-            ids2d, idx, cptr = host_prep_group(
+            ids2d, idx, _ = host_prep_group(
                 rows, pack=pack, vp=vp, block=blk, ch=ch, shards=shards
             )
             aux[f"embaux{g}_ids"] = ids2d
             aux[f"embaux{g}_idx"] = idx
-            aux[f"embaux{g}_ptr"] = cptr
         return aux
 
     if data_shards == 1:
@@ -197,33 +195,28 @@ def make_host_prep(plan: EmbedPlan, block: int = DEFAULT_BLOCK,
     return prep
 
 
-# Tiny table groups route around the Pallas kernel: below this many bytes
-# the streaming update buys nothing (the whole table is a few KB), and a
-# mixed program of many wide-128 streaming kernels plus tiny-wide ones
-# deterministically crashed the TPU worker at small batch (B=512, the CTR
-# protocol config — reproduced at r4 AND r5 kernels, f32 and bf16 matmul
-# modes; big-only and tiny-only programs both run clean).  The XLA
-# fallback is the exact same dense-optimizer math via scatter-add.
-TINY_TABLE_BYTES = 64 * 1024
-
-
 def _xla_group_update(t, state, cot_sorted, ids2d, *, pack, d, lr, step,
                       wd, kind, b1=0.9, b2=0.999, eps=1e-8):
-    """Exact dense Adam / rowwise-AdaGrad for one (tiny) group via XLA.
+    """Exact dense Adam / rowwise AdaGrad for one table group.
 
-    Consumes the SAME host-prep arrays as the kernel (sorted cot +
-    sentinel-padded ids; cptr unused): scatter-add the per-occurrence
-    cotangents into a dense (vp, pack, d) gradient (sentinels land in a
-    dropped overflow row), then the elementwise update — bit-for-bit the
-    kernel's semantics up to f32 summation order."""
+    Consumes the host-prep arrays (cotangent rows in ids2d order, ids2d
+    padded with sentinels; cptr is not needed): scatter-add the
+    per-occurrence cotangents into a dense (vp, pack, d) float32 gradient,
+    then one elementwise optimizer pass over table and moments.  Ids
+    outside ``[0, vp * pack)`` -- the prep's sentinels, and under a model
+    axis the rows another shard owns -- index past the last row and are
+    dropped by the scatter."""
     vp, wide = t.shape
     ids = ids2d.reshape(-1)
     cot = cot_sorted.reshape(-1, d).astype(jnp.float32)
-    valid = ids < vp * pack
-    prow = jnp.where(valid, ids // pack, vp)  # overflow row vp
+    valid = (ids >= 0) & (ids < vp * pack)
+    prow = jnp.where(valid, ids // pack, vp)
     sub = jnp.where(valid, ids % pack, 0)
-    g3 = jnp.zeros((vp + 1, pack, d), jnp.float32)
-    g = g3.at[prow, sub].add(cot)[:vp].reshape(vp, wide)
+    g = (
+        jnp.zeros((vp, pack, d), jnp.float32)
+        .at[prow, sub].add(cot, mode="drop")
+        .reshape(vp, wide)
+    )
     p_cur = t.astype(jnp.float32)
     if kind == "adam":
         tf = step.astype(jnp.float32)
@@ -235,14 +228,12 @@ def _xla_group_update(t, state, cot_sorted, ids2d, *, pack, d, lr, step,
         if wd:
             upd = upd + lr * wd * p_cur
         return (p_cur - upd).astype(t.dtype), {"m": m, "v": v}
-    # rowwise adagrad: one accumulator per vocab row (mean over d of g^2)
-    msq = jnp.mean(
-        (g * g).reshape(vp, pack, d), axis=2
-    )  # (vp, pack)
-    acc = state["acc"] + msq
-    denom = jnp.sqrt(acc) + eps
-    upd = lr * g.reshape(vp, pack, d) / denom[..., None]
-    upd = upd.reshape(vp, wide)
+    if kind != "rowwise_adagrad":
+        raise ValueError(f"unknown update kind {kind!r}")
+    # one accumulator per vocab row: mean over d of g^2
+    g3 = g.reshape(vp, pack, d)
+    acc = state["acc"] + jnp.mean(g3 * g3, axis=2)
+    upd = (lr * g3 / (jnp.sqrt(acc) + eps)[..., None]).reshape(vp, wide)
     if wd:
         upd = upd + lr * wd * p_cur
     return (p_cur - upd).astype(t.dtype), {"acc": acc}
@@ -259,50 +250,38 @@ def apply_updates_fused(
     step: jnp.ndarray,
     weight_decay: float = 0.0,
     kind: str = "adam",
-    block: int = DEFAULT_BLOCK,
-    ch: int = DEFAULT_CH,
-    mm_bf16: bool = True,
-    interpret: bool = False,
     mesh=None,
     shards_by_name: dict | None = None,
 ) -> tuple[dict, dict]:
-    """One fused dense-Adam step over every table group.
+    """One dense-optimizer step over every table group.
 
     ``batch`` must carry the ``embaux{g}_*`` arrays from
     :func:`make_host_prep`; ``pert_grad`` is the (B, F, D) tap cotangent.
     ``kind='adam'``: ``state`` is {name: {'m', 'v'}} (sparse_embed
-    init_state('lazy_adam') shapes — the moments ARE dense Adam's).
+    init_state('lazy_adam') shapes -- the moments ARE dense Adam's).
     ``kind='rowwise_adagrad'``: ``state`` is {name: {'acc'}} (init_state
     ('rowwise_adagrad')); at wd=0 the dense update equals the sparse one.
 
     ``mesh`` runs the same exact math SPMD.  Data axis: ONE all-gather
-    brings the (n, D) cotangent into the global sorted order (N·D/step on
-    the wire — the same payload the sparse-optimizer path psums, and
-    ~V·D/N times less than psum-ing dense table grads).  When the aux
-    arrays carry a leading stream axis (host-LOCAL prep,
+    brings the (n, D) cotangent into the global sorted order.  When the
+    aux arrays carry a leading stream axis (host-LOCAL prep,
     ``make_host_prep(..., data_shards=Sd)``), each data shard first
-    permutes only its LOCAL cotangent rows (1/Sd of the per-device gather
-    work) and the kernel consumes the Sd per-shard sorted streams — host
-    prep is O(local batch) per process and no process ever needs the
-    global batch.  Model axis: each
-    row-sharded table group updates shard-locally — host prep aligned the
-    block fences to shard boundaries, so shard ``s`` runs the SAME
-    streaming kernel over its local (vs, wide) rows with the
-    ``cptr[s*nb_s : (s+1)*nb_s + 1]`` chunk window and ids rebased by
-    ``s*vs*pack`` (groups whose row count doesn't divide the axis stay
-    replicated and update identically on every device).  ``shards_by_name``
-    (table name -> shard count, from the placed tables' NamedShardings)
-    must match the prep's; omitted, the :func:`group_shards` predicate is
-    used.  Semantics are identical to the single-chip path up to f32
-    summation order at shard-fence chunk splits.
+    permutes only its LOCAL cotangent rows and the Sd per-shard streams
+    are concatenated -- host prep is O(local batch) per process.  Model
+    axis: each row-sharded table group updates shard-locally under
+    ``shard_map``: shard ``s`` rebases ids by ``s*vs*pack`` and every id
+    outside its ``vs`` local rows is dropped (groups whose row count
+    doesn't divide the axis stay replicated and update identically on
+    every device).  ``shards_by_name`` (table name -> shard count, from
+    the placed tables' NamedShardings) must match the prep's; omitted,
+    the :func:`group_shards` predicate is used.  Semantics are identical
+    to the single-device path up to f32 summation order.
     """
-    from recsys_tpu.kernels.pallas.embedding_update_tpu import (
-        fused_bwd_adam,
-        fused_bwd_rowwise_adagrad,
-    )
-
+    if kind not in ("adam", "rowwise_adagrad"):
+        raise ValueError(f"unknown update kind {kind!r}")
     n_model = 1
     if mesh is not None:
+        from jax import shard_map
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         from recsys_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
@@ -318,36 +297,20 @@ def apply_updates_fused(
             sg = shards_by_name.get(name, 1)
         else:
             sg = group_shards(plan, g, n_model)
+        if sg > 1 and mesh is None:
+            raise ValueError(
+                f"group {name!r} prepped for {sg} model shards but no mesh "
+                "was passed -- shards_by_name must match the mesh"
+            )
         cols = plan.group_cols[g]
         ids_aux = batch[f"embaux{g}_ids"]
         idx = batch[f"embaux{g}_idx"]
-        ptr_aux = batch[f"embaux{g}_ptr"]
-        streamed = ids_aux.ndim == 3  # (Sd, nc_s, ch): host-local prep
-        if not streamed:
-            streams = 1
-            cot = jnp.concatenate(
-                [pert_grad[:, j, :] for j in cols]
-            )  # (n, d)
+        if ids_aux.ndim == 2:
+            cot = jnp.concatenate([pert_grad[:, j, :] for j in cols])
             cot_sorted = jnp.take(cot, idx, axis=0)
-            if mm_bf16:
-                # fuse the bf16 cast into the gather's output
-                cot_sorted = cot_sorted.astype(jnp.bfloat16)
-            if mesh is not None:
-                # the global sorted permutation crosses data shards:
-                # constrain replicated so XLA emits one all-gather here,
-                # not inside the kernel's operands
-                cot_sorted = jax.lax.with_sharding_constraint(
-                    cot_sorted, rep
-                )
-            ids2d, cptr = ids_aux, ptr_aux
+            ids2d = ids_aux
         else:
-            # Host-LOCAL prep: per-data-shard sorted streams.  Each data
-            # shard permutes only ITS cotangent rows (1/Sd of the gather
-            # work per device, in parallel), the sorted streams replicate
-            # through ONE all-gather (the same wire bytes the global
-            # contract moved), and the kernel consumes all Sd streams per
-            # table block.  Summation order differs from the global sort
-            # only across stream boundaries (f32 accumulate).
+            # host-LOCAL prep, (Sd, nc_s, ch): per-data-shard sorted streams
             streams = int(ids_aux.shape[0])
             if mesh is not None:
                 n_data = mesh.shape.get(DATA_AXIS, 1)
@@ -362,10 +325,7 @@ def apply_updates_fused(
                     cot_l = jnp.concatenate(
                         [pg[:, j, :] for j in cols], axis=0
                     )
-                    out = jnp.take(cot_l, idx_blk[0], axis=0)
-                    return out.astype(jnp.bfloat16) if mm_bf16 else out
-
-                from jax import shard_map
+                    return jnp.take(cot_l, idx_blk[0], axis=0)
 
                 cot_sorted = shard_map(
                     local_sort,
@@ -374,124 +334,50 @@ def apply_updates_fused(
                     out_specs=P(DATA_AXIS),
                     check_vma=False,
                 )(pert_grad, idx)
-                cot_sorted = jax.lax.with_sharding_constraint(
-                    cot_sorted, rep
-                )
             else:
-                b_total = pert_grad.shape[0]
-                bs = b_total // streams
-                parts = []
-                for s in range(streams):
-                    blk_rows = pert_grad[s * bs:(s + 1) * bs]
-                    cot_l = jnp.concatenate(
-                        [blk_rows[:, j, :] for j in cols], axis=0
+                bs = pert_grad.shape[0] // streams
+                cot_sorted = jnp.concatenate([
+                    jnp.take(
+                        jnp.concatenate(
+                            [pert_grad[s * bs:(s + 1) * bs, j, :]
+                             for j in cols]
+                        ),
+                        idx[s], axis=0,
                     )
-                    parts.append(jnp.take(cot_l, idx[s], axis=0))
-                cot_sorted = jnp.concatenate(parts, axis=0)
-                if mm_bf16:
-                    cot_sorted = cot_sorted.astype(jnp.bfloat16)
+                    for s in range(streams)
+                ])
             ids2d = ids_aux.reshape(-1, ids_aux.shape[-1])
-            cptr = ptr_aux.reshape(-1)
-            if mesh is not None:
-                ids2d = jax.lax.with_sharding_constraint(ids2d, rep)
-                cptr = jax.lax.with_sharding_constraint(cptr, rep)
+        if mesh is not None:
+            # the sorted permutation crosses data shards: replicate here so
+            # XLA emits one all-gather of the cotangent rows
+            cot_sorted = jax.lax.with_sharding_constraint(cot_sorted, rep)
+            ids2d = jax.lax.with_sharding_constraint(ids2d, rep)
         t = tables[name]
-        tiny = t.size * t.dtype.itemsize < TINY_TABLE_BYTES
-        if tiny and sg == 1:
-            # XLA fallback for tiny groups (see TINY_TABLE_BYTES): exact
-            # same dense-optimizer math, negligible cost at these sizes,
-            # and it keeps tiny-wide Pallas calls out of the program
+        st = state[name]
+        upd_kw = dict(pack=pack, d=d, lr=lr, wd=weight_decay, kind=kind)
+        if sg == 1:
             new_t, new_st = _xla_group_update(
-                t, state[name], cot_sorted, ids2d, pack=pack, d=d,
-                lr=lr, step=step, wd=weight_decay,
-                kind="adam" if kind == "adam" else "rowwise",
+                t, st, cot_sorted, ids2d, step=step, **upd_kw
             )
-            if mesh is not None:
-                new_t = jax.lax.with_sharding_constraint(new_t, rep)
-                new_st = {
-                    k2: jax.lax.with_sharding_constraint(v2, rep)
-                    for k2, v2 in new_st.items()
-                }
-            new_tables[name] = new_t
-            new_state[name] = new_st
-            continue
-        vs = t.shape[0] // sg  # local rows per model shard
-        blk = min(block, vs)
-        kw = dict(
-            block=blk, ch=ch, pack=pack, d=d,
-            wd=weight_decay, mm_bf16=mm_bf16, interpret=interpret,
-            streams=streams,
-        )
-        aux_in = (cot_sorted, ids2d, cptr)
-        if kind == "adam":
-            def run(t_, m_, v_, cs_, ids_, ptr_, step_, kw=kw):
-                return fused_bwd_adam(t_, m_, v_, cs_, ids_, ptr_, step_,
-                                      lr=lr, **kw)
-
-            table_in = (t, state[name]["m"], state[name]["v"])
-            call_in = table_in + aux_in + (step,)
-        elif kind == "rowwise_adagrad":
-            def run(t_, a_, cs_, ids_, ptr_, lr_, kw=kw):
-                return fused_bwd_rowwise_adagrad(t_, a_, cs_, ids_, ptr_,
-                                                 lr_, **kw)
-
-            table_in = (t, state[name]["acc"])
-            call_in = table_in + aux_in + (jnp.float32(lr),)
         else:
-            raise ValueError(f"unknown fused kind {kind!r}")
+            vs = t.shape[0] // sg  # local rows per model shard
 
-        n_t = len(table_in)
-        if sg > 1 and mesh is None:
-            raise ValueError(
-                f"group {name!r} prepped for {sg} model shards but no mesh "
-                "was passed — shards_by_name must match the mesh"
-            )
-        if sg > 1:
-            # model-axis row-sharded group: rebase ids to the local shard
-            # and hand each shard its cptr window (fences are shard-aligned
-            # by host prep, so the window's chunks index the REPLICATED
-            # ids2d/cot arrays directly — no chunk rebasing needed).  With
-            # ``streams`` > 1 the window is taken from EACH stream's cptr
-            # segment (all segments carry sg*nb_s+1 shard-aligned fences).
-            nb_s = -(-vs // blk)
-            nb1_full = cptr.shape[0] // streams  # entries per stream seg
-
-            def run(*a, run_=run, nb_s=nb_s, vs=vs, pack=pack, n_t=n_t,
-                    streams=streams, nb1_full=nb1_full):
+            def run(t_, st_, cs_, ids_, step_, vs=vs, pack=pack):
                 s = jax.lax.axis_index(MODEL_AXIS)
-                ids_l = a[n_t + 1] - s * (vs * pack)
-                ptr_full = a[n_t + 2].reshape(streams, nb1_full)
-                ptr_l = jax.lax.dynamic_slice(
-                    ptr_full, (jnp.int32(0), s * nb_s),
-                    (streams, nb_s + 1),
-                ).reshape(-1)
-                return run_(*a[:n_t + 1], ids_l, ptr_l, *a[n_t + 3:])
+                return _xla_group_update(
+                    t_, st_, cs_, ids_ - s * (vs * pack), step=step_,
+                    **upd_kw,
+                )
 
-        if mesh is None:
-            outs = run(*call_in)
-        else:
-            from jax import shard_map
-
-            # sharded groups split their table rows over the model axis;
-            # replicated groups (and any group under a model-less mesh)
-            # carry the whole table per device.  P(MODEL_AXIS, None) over a
-            # size-1 model axis is the round-3 DP form — kept as is.
-            tspec = (
-                P(MODEL_AXIS, None) if (sg > 1 or n_model == 1) else P()
-            )
-            n_rest = len(call_in) - n_t
-            outs = shard_map(
+            row = P(MODEL_AXIS, None)
+            st_spec = {k: row for k in st}
+            new_t, new_st = shard_map(
                 run,
                 mesh=mesh,
-                in_specs=(tspec,) * n_t + (P(),) * n_rest,
-                out_specs=(tspec,) * n_t,
+                in_specs=(row, st_spec, P(), P(), P()),
+                out_specs=(row, st_spec),
                 check_vma=False,
-            )(*call_in)
-
-        if kind == "adam":
-            new_tables[name] = outs[0]
-            new_state[name] = {"m": outs[1], "v": outs[2]}
-        else:
-            new_tables[name] = outs[0]
-            new_state[name] = {"acc": outs[1]}
+            )(t, st, cot_sorted, ids2d, step)
+        new_tables[name] = new_t
+        new_state[name] = new_st
     return new_tables, new_state

@@ -1,7 +1,7 @@
-"""Two-process worker: one Trainer epoch on a hybrid DCN/ICI mesh.
+"""Two-process worker: one Trainer epoch on a two-process (data, model) mesh.
 
 Engines covered: the compiler-partitioned gather engine, the explicit a2a
-engine, and the fused streaming embedding update (fused_adam) under BOTH
+engine, and the fused_adam embedding update under BOTH
 data contracts — 'global' (every process passes the same global arrays)
 and 'local' (each process passes only ITS rows; the global batch is
 assembled by jax.make_array_from_process_local_data and host prep sorts
@@ -31,7 +31,7 @@ cases = [
     ("a2a", {"embed_kw": {"engine": "a2a", "mesh": mesh, "num_groups": 1,
                           "capacity_factor": None}}, {}),
     ("fused", {"sparse_embed_grads": True},
-     {"embedding_optimizer": "fused_adam", "embedding_fused_bf16": False}),
+     {"embedding_optimizer": "fused_adam"}),
 ]
 for engine, model_kw, train_kw in cases:
     tr = Trainer(DLRM(schema, bottom_units=(16, 4), top_units=(16,),
@@ -54,7 +54,7 @@ local = {k: v[p * 32:(p + 1) * 32] for k, v in data2.items()}
 tr = Trainer(DLRM(schema2, bottom_units=(16, 4), top_units=(16,),
                   sparse_embed_grads=True),
              learning_rate=1e-2, mesh=mesh, seed=3,
-             embedding_optimizer="fused_adam", embedding_fused_bf16=False,
+             embedding_optimizer="fused_adam",
              data_contract="local")
 h = tr.fit(local, batch_size=64, epochs=2, verbose=False)
 print(f"RESULT proc={p} engine=fused_local loss={float(h['loss'][-1])!r}",

@@ -130,7 +130,7 @@ def test_esmm_probability_structure():
 
 
 def test_dlrm_bf16_compute_matches_f32_quality():
-    """compute_dtype=bfloat16 (MXU-native mixed precision; params and loss
+    """compute_dtype=bfloat16 (bf16 mixed precision; params and loss
     stay f32) reaches the same AUC as full f32 on the planted fixture —
     the parity guard behind the bench's bf16 compute path."""
     import jax.numpy as jnp

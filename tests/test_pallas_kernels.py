@@ -1,14 +1,14 @@
-"""Pallas kernel path (interpret mode on CPU) vs jnp references: forward AND
-gradients (the dispatch layer's closed-form VJPs must match autodiff)."""
+"""The model path's compute ops (interactions, attention, pooled gather,
+top-k) against float64 numpy references: forward AND gradients (XLA's
+autodiff of the plain ops)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from recsys_tpu.kernels import attention as attn_ref
 from recsys_tpu.kernels import dispatch
-from recsys_tpu.kernels import embedding as emb_ref
-from recsys_tpu.kernels import interactions as int_ref
+from recsys_tpu.kernels import embedding as emb_ops
+from recsys_tpu.kernels import interactions as int_ops
 
 
 @pytest.fixture
@@ -16,44 +16,76 @@ def rng():
     return np.random.default_rng(0)
 
 
+def _attention64(q, k, v, mask):
+    """float64 masked softmax attention and the backward of sum(out**2).
+
+    mask broadcastable to (B, H, Sq, Sk); every query row keeps at least
+    one visible key.  Returns (out, (dq, dk, dv))."""
+    q, k, v = (np.asarray(t, np.float64) for t in (q, k, v))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    s = np.where(mask, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    out = np.einsum("bhqk,bhkd->bhqd", p, v)
+    d_out = 2.0 * out
+    dv = np.einsum("bhqk,bhqd->bhkd", p, d_out)
+    dp = np.einsum("bhqd,bhkd->bhqk", d_out, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdims=True))
+    dq = np.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = np.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return out, (dq, dk, dv)
+
+
+def _sdpa_grads(q, k, v, mask, causal):
+    def loss(q, k, v):
+        return jnp.sum(dispatch.sdpa(q, k, v, mask, causal=causal) ** 2)
+
+    return jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+
+
 def test_fm_vector_forward_and_grad(rng):
     x = jnp.asarray(rng.normal(size=(12, 9, 16)), jnp.float32)
-    got = dispatch.fm_pairwise_vector(x, interpret=True)
-    np.testing.assert_allclose(got, int_ref.fm_pairwise_vector(x),
-                               rtol=1e-4, atol=1e-4)
+    x64 = np.asarray(x, np.float64)
+    s = x64.sum(axis=1)
+    want = 0.5 * (s ** 2 - (x64 ** 2).sum(axis=1))
+    got = int_ops.fm_pairwise_vector(x)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
-    def loss_kernel(x):
-        return jnp.sum(jnp.sin(dispatch.fm_pairwise_vector(x, interpret=True)))
+    def loss(x):
+        return jnp.sum(jnp.sin(int_ops.fm_pairwise_vector(x)))
 
-    def loss_ref(x):
-        return jnp.sum(jnp.sin(int_ref.fm_pairwise_vector(x)))
-
-    np.testing.assert_allclose(
-        jax.grad(loss_kernel)(x), jax.grad(loss_ref)(x), rtol=1e-3, atol=1e-4
-    )
+    # d/dx_fd sum(sin(y)) = cos(y_d) * (sum_f' x_f'd - x_fd)
+    want_g = np.cos(want)[:, None, :] * (s[:, None, :] - x64)
+    np.testing.assert_allclose(jax.grad(loss)(x), want_g, rtol=1e-3,
+                               atol=1e-4)
 
 
 def test_dot_interaction_forward_and_grad(rng):
     x = jnp.asarray(rng.normal(size=(8, 11, 8)), jnp.float32)
-    got = dispatch.dot_interaction(x, interpret=True)
-    np.testing.assert_allclose(got, int_ref.dot_interaction(x),
-                               rtol=1e-4, atol=1e-4)
+    x64 = np.asarray(x, np.float64)
+    gram = np.einsum("bfd,bgd->bfg", x64, x64)
+    rows, cols = np.tril_indices(11, k=-1)
+    got = int_ops.dot_interaction(x)
+    np.testing.assert_allclose(got, gram[:, rows, cols], rtol=1e-4,
+                               atol=1e-4)
 
-    g = jnp.asarray(rng.normal(size=got.shape), jnp.float32)
+    g = rng.normal(size=got.shape)
 
-    def loss_kernel(x):
-        return jnp.sum(dispatch.dot_interaction(x, interpret=True) * g)
+    def loss(x):
+        return jnp.sum(int_ops.dot_interaction(x) * jnp.asarray(g, x.dtype))
 
-    def loss_ref(x):
-        return jnp.sum(int_ref.dot_interaction(x) * g)
-
+    sym = np.zeros((8, 11, 11))
+    sym[:, rows, cols] = g
+    sym = sym + sym.transpose(0, 2, 1)
     np.testing.assert_allclose(
-        jax.grad(loss_kernel)(x), jax.grad(loss_ref)(x), rtol=1e-3, atol=1e-4
+        jax.grad(loss)(x), np.einsum("bfg,bgd->bfd", sym, x64),
+        rtol=1e-3, atol=1e-4,
     )
-    # self-interaction variant
-    got_s = dispatch.dot_interaction(x, self_interaction=True, interpret=True)
+    # self-interaction variant: the inclusive triangle
+    rs, cs = np.tril_indices(11, k=0)
     np.testing.assert_allclose(
-        got_s, int_ref.dot_interaction(x, self_interaction=True),
+        int_ops.dot_interaction(x, self_interaction=True), gram[:, rs, cs],
         rtol=1e-4, atol=1e-4,
     )
 
@@ -62,44 +94,27 @@ def test_sdpa_forward_and_grad(rng):
     B, H, S, D = 2, 2, 40, 16
     q, k, v = (jnp.asarray(rng.normal(size=(B, H, S, D)), jnp.float32)
                for _ in range(3))
-    mask = jnp.asarray(rng.random((B, S)) > 0.25)
-    got = dispatch.sdpa(q, k, v, mask, interpret=True)
-    ref = attn_ref.sdpa(q, k, v, mask[:, None, None, :])
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
-
-    def loss_kernel(q, k, v):
-        return jnp.sum(dispatch.sdpa(q, k, v, mask, interpret=True) ** 2)
-
-    def loss_ref(q, k, v):
-        return jnp.sum(attn_ref.sdpa(q, k, v, mask[:, None, None, :]) ** 2)
-
-    gk = jax.grad(loss_kernel, argnums=(0, 1, 2))(q, k, v)
-    gr = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(gk, gr):
+    mask = jnp.asarray(rng.random((B, S)) > 0.25).at[:, 0].set(True)
+    want, want_g = _attention64(q, k, v, np.asarray(mask)[:, None, None, :])
+    with jax.default_matmul_precision("highest"):
+        got = dispatch.sdpa(q, k, v, mask)
+        got_g = _sdpa_grads(q, k, v, mask, False)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    for a, b in zip(got_g, want_g):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
 
 
 def test_sdpa_precision_knob(rng):
-    """precision=HIGHEST threads through both paths (the on-chip contract:
-    tools/flash_numerics pins the round-1 0.5% gradient gap to DEFAULT MXU
-    input rounding; HIGHEST makes flash and XLA agree to ~1e-6)."""
+    """Under ``default_matmul_precision("highest")`` the attention route
+    runs full float32 products: gradients within 1e-4 of float64."""
     B, H, S, D = 2, 2, 40, 16
     q, k, v = (jnp.asarray(rng.normal(size=(B, H, S, D)), jnp.float32)
                for _ in range(3))
-    mask = jnp.asarray(rng.random((B, S)) > 0.25)
-    hi = jax.lax.Precision.HIGHEST
-
-    def loss_kernel(q, k, v):
-        out = dispatch.sdpa(q, k, v, mask, interpret=True, precision=hi)
-        return jnp.sum(out ** 2)
-
-    def loss_ref(q, k, v):
-        out = attn_ref.sdpa(q, k, v, mask[:, None, None, :], precision=hi)
-        return jnp.sum(out ** 2)
-
-    gk = jax.grad(loss_kernel, argnums=(0, 1, 2))(q, k, v)
-    gr = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(gk, gr):
+    mask = jnp.asarray(rng.random((B, S)) > 0.25).at[:, 0].set(True)
+    _, want_g = _attention64(q, k, v, np.asarray(mask)[:, None, None, :])
+    with jax.default_matmul_precision("highest"):
+        got_g = _sdpa_grads(q, k, v, mask, False)
+    for a, b in zip(got_g, want_g):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
@@ -107,51 +122,56 @@ def test_sdpa_causal(rng):
     B, H, S, D = 1, 1, 24, 8
     q, k, v = (jnp.asarray(rng.normal(size=(B, H, S, D)), jnp.float32)
                for _ in range(3))
-    causal = jnp.arange(S)[:, None] >= jnp.arange(S)[None, :]
-    ref = attn_ref.sdpa(q, k, v, causal[None, None])
-    got = dispatch.sdpa(q, k, v, None, causal=True, interpret=True)
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+    causal = np.arange(S)[:, None] >= np.arange(S)[None, :]
+    want, _ = _attention64(q, k, v, causal[None, None])
+    with jax.default_matmul_precision("highest"):
+        got = dispatch.sdpa(q, k, v, None, causal=True)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean", "sqrtn"])
 def test_segment_sum_gather_forward_and_grad(rng, mode):
     table = jnp.asarray(rng.normal(size=(50, 8)), jnp.float32)
-    rows = jnp.asarray(rng.integers(0, 50, (13, 7)), jnp.int32)
-    mask = jnp.asarray(rng.random((13, 7)) > 0.4)
-    got = dispatch.segment_sum_gather(table, rows, mask, mode=mode,
-                                      interpret=True)
-    ref = emb_ref.segment_sum_gather(table, rows, mask, mode=mode)
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+    rows = rng.integers(0, 50, (13, 7))
+    mask = rng.random((13, 7)) > 0.4
+    m = mask.astype(np.float64)
+    count = np.maximum(m.sum(axis=1, keepdims=True), 1.0)
+    w = {"sum": m, "mean": m / count, "sqrtn": m / np.sqrt(count)}[mode]
+    t64 = np.asarray(table, np.float64)
+    want = np.einsum("bl,bld->bd", w, t64[rows])
+    got = emb_ops.segment_sum_gather(table, jnp.asarray(rows, jnp.int32),
+                                     jnp.asarray(mask), mode=mode)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
-    g = jnp.asarray(rng.normal(size=got.shape), jnp.float32)
+    g = rng.normal(size=want.shape)
 
-    def loss_kernel(t):
-        return jnp.sum(
-            dispatch.segment_sum_gather(t, rows, mask, mode=mode,
-                                        interpret=True) * g
-        )
+    def loss(t):
+        return jnp.sum(emb_ops.segment_sum_gather(
+            t, jnp.asarray(rows, jnp.int32), jnp.asarray(mask), mode=mode
+        ) * jnp.asarray(g, jnp.float32))
 
-    def loss_ref(t):
-        return jnp.sum(emb_ref.segment_sum_gather(t, rows, mask, mode=mode) * g)
-
-    np.testing.assert_allclose(
-        jax.grad(loss_kernel)(table), jax.grad(loss_ref)(table),
-        rtol=1e-3, atol=1e-4,
-    )
+    want_g = np.zeros_like(t64)
+    np.add.at(want_g, rows.reshape(-1),
+              (w[..., None] * g[:, None, :]).reshape(-1, 8))
+    np.testing.assert_allclose(jax.grad(loss)(table), want_g, rtol=1e-3,
+                               atol=1e-4)
 
 
 def test_fused_topk_matches_dense(rng):
-    from recsys_tpu.kernels.pallas.topk_tpu import topk_scores_pallas
+    """Brute-force top-k (values and indices) against a float64 argsort."""
     from recsys_tpu.train.retrieval import topk_scores
 
     q = jnp.asarray(rng.normal(size=(24, 8)), jnp.float32)
     items = jnp.asarray(rng.normal(size=(130, 8)), jnp.float32)
-    pv, pi = topk_scores_pallas(q, items, k=7, blk_q=8, tile_n=32,
-                                interpret=True)
-    dv, di = topk_scores(q, items, k=7)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(dv), rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(di))
+    scores = np.asarray(q, np.float64) @ np.asarray(items, np.float64).T
+    want_i = np.argsort(-scores, axis=1, kind="stable")[:, :7]
+    with jax.default_matmul_precision("highest"):
+        dv, di = topk_scores(q, items, k=7)
+    np.testing.assert_array_equal(np.asarray(di), want_i)
+    np.testing.assert_allclose(
+        np.asarray(dv), np.take_along_axis(scores, want_i, axis=1),
+        rtol=1e-5, atol=1e-5,
+    )
 
 
 def test_dlrm_bf16_compute_close_to_f32(rng):
@@ -179,59 +199,21 @@ def test_sdpa_causal_backward(rng):
     B, H, S, D = 2, 2, 48, 16
     q, k, v = (jnp.asarray(rng.normal(size=(B, H, S, D)), jnp.float32)
                for _ in range(3))
-    # keep key 0 visible: with causal masking a fully-masked query row is
-    # degenerate (the jnp reference softmaxes uniformly over -inf logits
-    # while flash emits zeros — both arbitrary, gradients differ)
+    # keep key 0 visible so no query row is fully masked
     mask = jnp.asarray(rng.random((B, S)) > 0.2).at[:, 0].set(True)
-    cm = mask[:, None, None, :] & (
-        jnp.arange(S)[:, None] >= jnp.arange(S)[None, :]
+    cm = np.asarray(mask)[:, None, None, :] & (
+        np.arange(S)[:, None] >= np.arange(S)[None, :]
     )
-
-    def loss_kernel(q, k, v):
-        return jnp.sum(
-            dispatch.sdpa(q, k, v, mask, causal=True, interpret=True) ** 2
-        )
-
-    def loss_ref(q, k, v):
-        return jnp.sum(attn_ref.sdpa(q, k, v, cm) ** 2)
-
-    gk = jax.grad(loss_kernel, argnums=(0, 1, 2))(q, k, v)
-    gr = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(gk, gr):
+    _, want_g = _attention64(q, k, v, cm)
+    with jax.default_matmul_precision("highest"):
+        got_g = _sdpa_grads(q, k, v, mask, True)
+    for a, b in zip(got_g, want_g):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
 
 
-def test_hot_gather_pallas_matches_packed_gather(rng):
-    """The Zipf-split probe's hot-path kernel (one-hot matmul gather from a
-    VMEM hot buffer + lane-compress) must reproduce the XLA packed gather
-    on the hot subset, with sentinel slots producing zeros."""
-    from recsys_tpu.kernels.embedding import packed_gather
-    from recsys_tpu.tools.gather_split_probe import (
-        CH, hot_gather_pallas, host_split,
-    )
-    from recsys_tpu.tools import gather_split_probe as gsp
-
-    ids = gsp._zipf_ids(np.random.default_rng(3), 1.1, 2048)
-    hot_rows, hot_idx2d, inv, cold_ids, n_hot, n_cold = host_split(ids, 128)
-    vp = -(-gsp.VOCAB // gsp.PACK)
-    vp += (-vp) % 8
-    table = jnp.asarray(
-        np.random.default_rng(0).uniform(-0.05, 0.05, (vp, gsp.WIDE)),
-        jnp.float32,
-    )
-    hot_buf = jnp.take(table, jnp.asarray(hot_rows), axis=0)
-    # exact f32 path: bit-parity with the XLA gather
-    hot_out = hot_gather_pallas(hot_buf, jnp.asarray(hot_idx2d),
-                                pack=gsp.PACK, d=gsp.D, mm_bf16=False,
-                                interpret=True)
-    both = jnp.concatenate(
-        [hot_out[:n_hot], packed_gather(table, jnp.asarray(cold_ids),
-                                        gsp.PACK, gsp.D)], axis=0)
-    got = np.asarray(jnp.take(both, jnp.asarray(inv), axis=0))
-    want = np.asarray(packed_gather(table, jnp.asarray(ids), gsp.PACK,
-                                    gsp.D))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    # sentinel padding rows emit zeros
-    if n_hot % CH:
-        pad = np.asarray(hot_out[n_hot:])
-        np.testing.assert_array_equal(pad, np.zeros_like(pad))
+def test_sdpa_route_follows_dtype():
+    """cuDNN's fused attention takes bf16/fp16 only, and only on the GPU;
+    float32 and every CPU call take XLA's route."""
+    assert dispatch.attention_implementation(jnp.float32) == "xla"
+    want16 = "cudnn" if jax.default_backend() == "gpu" else "xla"
+    assert dispatch.attention_implementation(jnp.bfloat16) == want16

@@ -1,14 +1,10 @@
-"""Regression: every Pallas-dispatch op must survive TWO grad traces in one
+"""Regression: every model-path op must survive TWO grad traces in one
 process under two DIFFERENT jits.
 
-Round 3 shipped a live crash here: ``dispatch._dot_sel_matrix`` was an
-``lru_cache`` returning a ``jnp`` array, so the constant created inside the
-first grad trace leaked into the second trace of the same (F,
-self_interaction) key and died with ``UnexpectedTracerError`` — crashing
-``bench.py --breakdown`` at HEAD (any process that grad-traces a
-DotInteraction model twice).  The cache now stores numpy; these tests pin
-re-traceability for the WHOLE kernel dispatch surface so no future cache
-can regress it.
+A cached value built inside one trace (an ``lru_cache`` returning a jnp
+array, say) leaks into the next trace of the same key and dies with
+``UnexpectedTracerError``.  These tests pin re-traceability for the op
+surface so no future cache can regress it.
 
 Each op is traced via two distinct Python functions (distinct jit cache
 entries → two real traces), with identical shapes/dtypes so any trace-local
@@ -20,6 +16,8 @@ import numpy as np
 import pytest
 
 from recsys_tpu.kernels import dispatch
+from recsys_tpu.kernels import embedding as emb_ops
+from recsys_tpu.kernels import interactions as int_ops
 
 
 @pytest.fixture
@@ -44,12 +42,11 @@ def _two_grad_traces(make_loss, *args):
 
 
 def test_dot_interaction_retrace(rng):
-    # F=27 matches the DLRM bench shape whose cached (f, self_interaction)
-    # key triggered the round-3 crash
+    # F=27: the DLRM bench's 26 fields plus the bottom-MLP vector
     x = jnp.asarray(rng.normal(size=(4, 27, 8)), jnp.float32)
 
     def loss(x):
-        return jnp.sum(dispatch.dot_interaction(x, interpret=True) ** 2)
+        return jnp.sum(int_ops.dot_interaction(x) ** 2)
 
     _two_grad_traces(loss, x)
 
@@ -58,9 +55,7 @@ def test_dot_interaction_self_retrace(rng):
     x = jnp.asarray(rng.normal(size=(4, 11, 8)), jnp.float32)
 
     def loss(x):
-        return jnp.sum(
-            dispatch.dot_interaction(x, self_interaction=True, interpret=True)
-        )
+        return jnp.sum(int_ops.dot_interaction(x, self_interaction=True))
 
     _two_grad_traces(loss, x)
 
@@ -69,7 +64,7 @@ def test_fm_pairwise_retrace(rng):
     x = jnp.asarray(rng.normal(size=(4, 9, 16)), jnp.float32)
 
     def loss(x):
-        return jnp.sum(dispatch.fm_pairwise_vector(x, interpret=True))
+        return jnp.sum(int_ops.fm_pairwise_vector(x))
 
     _two_grad_traces(loss, x)
 
@@ -80,10 +75,10 @@ def test_sdpa_retrace(rng):
     mask = jnp.asarray(rng.random((2, 16)) > 0.25)
 
     def loss(q, k, v):
-        return jnp.sum(dispatch.sdpa(q, k, v, mask, interpret=True) ** 2)
+        return jnp.sum(dispatch.sdpa(q, k, v, mask) ** 2)
 
     def loss2(q, k, v):
-        return jnp.sum(dispatch.sdpa(q, k, v, mask, interpret=True) ** 2)
+        return jnp.sum(dispatch.sdpa(q, k, v, mask) ** 2)
 
     g1 = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(q, k, v)
     g2 = jax.jit(jax.grad(loss2, argnums=(0, 1, 2)))(q, k, v)
@@ -97,55 +92,34 @@ def test_pooled_gather_retrace(rng):
     mask = jnp.asarray(rng.random((4, 6)) > 0.3)
 
     def loss(t):
-        return jnp.sum(
-            dispatch.segment_sum_gather(t, rows, mask, interpret=True) ** 2
-        )
+        return jnp.sum(emb_ops.segment_sum_gather(t, rows, mask) ** 2)
 
     _two_grad_traces(loss, table)
 
 
 def test_fused_topk_retrace(rng):
-    # eval-only op: two full jit traces (no grad) must both compile + agree
-    from recsys_tpu.kernels.pallas.topk_tpu import topk_scores_pallas
+    # eval-only op: two full jit traces (no grad) must both compile, agree
+    # with each other and with lax.top_k on the materialised scores
+    from recsys_tpu.train.retrieval import topk_scores
 
     q = jnp.asarray(rng.normal(size=(8, 16)), jnp.float32)
     items = jnp.asarray(rng.normal(size=(64, 16)), jnp.float32)
 
-    v1, i1 = jax.jit(lambda a, b: topk_scores_pallas(a, b, k=4,
-                                                     interpret=True))(q, items)
-    v2, i2 = jax.jit(lambda a, b: topk_scores_pallas(a, b, k=4,
-                                                     interpret=True))(q, items)
+    v1, i1 = jax.jit(lambda a, b: topk_scores(a, b, k=4))(q, items)
+    v2, i2 = jax.jit(lambda a, b: topk_scores(a, b, k=4))(q, items)
     np.testing.assert_allclose(np.asarray(v1), np.asarray(v2))
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-
-
-def test_fused_mlp_retrace(rng):
-    from recsys_tpu.ops.mlp import FusedMLP
-
-    x = jnp.asarray(rng.normal(size=(8, 16)), jnp.float32)
-    m = FusedMLP(hidden_units=(32,), out_dim=8, mm_bf16=False)
-    params = m.init(jax.random.PRNGKey(0), x)
-
-    def loss(p, x):
-        return jnp.sum(m.apply(p, x) ** 2)
-
-    def loss2(p, x):
-        return jnp.sum(m.apply(p, x) ** 2)
-
-    g1 = jax.jit(jax.grad(loss))(params, x)
-    g2 = jax.jit(jax.grad(loss2))(params, x)
-    l1, l2 = jax.tree_util.tree_leaves(g1), jax.tree_util.tree_leaves(g2)
-    for a, b in zip(l1, l2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6)
+    _, want_i = jax.lax.top_k(q @ items.T, 4)
+    np.testing.assert_array_equal(np.asarray(i1), np.asarray(want_i))
 
 
 def test_dot_interaction_retrace_unjitted_then_jitted(rng):
-    """The exact round-3 repro shape: an eager grad call (populates any
-    trace-local cache) followed by a fresh jitted grad trace."""
+    """An eager grad call (populates any trace-local cache) followed by a
+    fresh jitted grad trace."""
     x = jnp.asarray(rng.normal(size=(2, 27, 4)), jnp.float32)
 
     def loss(x):
-        return jnp.sum(dispatch.dot_interaction(x, interpret=True))
+        return jnp.sum(int_ops.dot_interaction(x))
 
     g_eager = jax.grad(loss)(x)
     g_jit = jax.jit(jax.grad(loss))(x)

@@ -59,7 +59,7 @@ def test_packed_gather_grad_is_spread_scatter():
 
 
 def test_stacked_embedding_packed_lookup_consistency():
-    from recsys_tpu.ops.embedding import StackedEmbedding
+    from recsys_tpu.ops.linen import StackedEmbedding
 
     schema, data = _schema_data(vocab=600)
     mod = StackedEmbedding(schema)

@@ -83,14 +83,17 @@ def test_criteo_stream_batches_and_normalization(tmp_path):
 def test_fit_over_stream_trains_and_bounds_memory(tmp_path):
     """An epoch over a multi-chunk file must train (loss falls) while
     holding only O(chunk) rows resident: RSS growth across the fit stays
-    far below what materialising the parsed dataset would cost."""
-    import resource
+    far below what materialising the parsed dataset would cost.
 
-    import jax
-
-    from recsys_tpu.data.streaming import CriteoStream
-    from recsys_tpu.models.ctr.dlrm import DLRM
-    from recsys_tpu.train.loop import Trainer
+    The fit runs in a fresh process with glibc's allocator pinned (one
+    arena, fixed mmap threshold): otherwise a worker's earlier tests, the
+    per-thread arenas of each fit's prefetch thread and the adaptive mmap
+    threshold add a one-time ~20 MB of allocator state at a random fit,
+    which the peak-RSS reading would count as the program's growth."""
+    import json
+    import os
+    import subprocess
+    import sys
 
     p = str(tmp_path / "big.csv")
     n = 200_000
@@ -98,19 +101,34 @@ def test_fit_over_stream_trains_and_bounds_memory(tmp_path):
     # parsed resident size would be n * (13f + 26i + label) ~ 32 MB, plus
     # the pandas frame the reference path would hold (~10x); the stream
     # keeps 2 chunk buffers of 8192 rows (~1.3 MB)
-    ds = CriteoStream(p, batch_size=1024, chunk_rows=8192, embed_dim=4,
-                      cat_buckets=1 << 12)
-    tr = Trainer(
-        DLRM(ds.schema, bottom_units=(16, 4), top_units=(16,),
-             sparse_embed_grads=True),
-        learning_rate=1e-2, embedding_optimizer="fused_adam",
-    )
-    # warm: one epoch compiles + allocates steady-state buffers
-    h0 = tr.fit(ds, epochs=1, verbose=False)
-    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    h1 = tr.fit(ds, epochs=2, verbose=False)
-    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    assert h1["loss"][-1] < h0["loss"][0], (h0["loss"], h1["loss"])
+    code = f"""
+import json, resource
+from recsys_tpu.data.streaming import CriteoStream
+from recsys_tpu.models.ctr.dlrm import DLRM
+from recsys_tpu.train.loop import Trainer
+
+ds = CriteoStream({p!r}, batch_size=1024, chunk_rows=8192, embed_dim=4,
+                  cat_buckets=1 << 12)
+tr = Trainer(
+    DLRM(ds.schema, bottom_units=(16, 4), top_units=(16,),
+         sparse_embed_grads=True),
+    learning_rate=1e-2, embedding_optimizer="fused_adam",
+)
+# warm: one epoch compiles + allocates steady-state buffers
+h0 = tr.fit(ds, epochs=1, verbose=False)
+rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+h1 = tr.fit(ds, epochs=2, verbose=False)
+rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+print(json.dumps([h0["loss"], h1["loss"], rss0, rss1]))
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo,
+               MALLOC_ARENA_MAX="1", MALLOC_MMAP_THRESHOLD_="1048576")
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    h0, h1, rss0, rss1 = json.loads(r.stdout.strip().splitlines()[-1])
+    assert h1[-1] < h0[0], (h0, h1)
     # steady-state epochs must not accumulate dataset-sized memory: the
     # parsed arrays alone would add ~32 MB resident; allocator/jit noise
     # measures ~8 MB.  (ru_maxrss is KB on linux.)

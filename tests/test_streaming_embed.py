@@ -1,13 +1,23 @@
-"""Fused streaming embedding backward+Adam (train/streaming_embed.py +
-kernels/pallas/embedding_update_tpu.py) — exactness vs dense scatter-add +
-dense Adam, and the Trainer integration (VERDICT r2 next-step #1)."""
+"""fused_adam / fused_rowwise_adagrad table updates (train/streaming_embed.py)
+— exactness of the XLA scatter-add + dense optimizer vs a float64 dense
+reference, the host prep, and the Trainer integration."""
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from recsys_tpu.train.streaming_embed import host_prep_group
+from recsys_tpu.train.streaming_embed import _xla_group_update, host_prep_group
+
+
+def _adam(p, m, v, cs, ids2d, step, *, pack, d, wd=0.0):
+    """One _xla_group_update Adam step on host-prep arrays -> (p, m, v)."""
+    new_p, st = _xla_group_update(
+        jnp.asarray(p), {"m": jnp.asarray(m), "v": jnp.asarray(v)},
+        jnp.asarray(cs), jnp.asarray(ids2d), pack=pack, d=d, lr=1e-3,
+        step=jnp.int32(step), wd=wd, kind="adam",
+    )
+    return new_p, st["m"], st["v"]
 
 
 def _dense_reference(p, m, v, cot, ids, step, *, pack, d, lr=1e-3,
@@ -26,8 +36,6 @@ def _dense_reference(p, m, v, cot, ids, step, *, pack, d, lr=1e-3,
 
 
 def _run_case(vocab, pack, d, n, block, ch, *, wd=0.0, seed=0):
-    from recsys_tpu.kernels.pallas.embedding_update_tpu import fused_bwd_adam
-
     rng = np.random.default_rng(seed)
     vp = ((-(-vocab // pack)) + 7) // 8 * 8
     wide = pack * d
@@ -46,12 +54,7 @@ def _run_case(vocab, pack, d, n, block, ch, *, wd=0.0, seed=0):
     ids2d, idx, cptr = host_prep_group(ids, pack=pack, vp=vp, block=block,
                                        ch=ch)
     cot_sorted = np.take(cot, idx, axis=0)
-    got = fused_bwd_adam(
-        jnp.asarray(p), jnp.asarray(m), jnp.asarray(v),
-        jnp.asarray(cot_sorted), jnp.asarray(ids2d), jnp.asarray(cptr),
-        jnp.int32(step), block=block, ch=ch, pack=pack, d=d, wd=wd,
-        mm_bf16=True, interpret=True,
-    )
+    got = _adam(p, m, v, cot_sorted, ids2d, step, pack=pack, d=d, wd=wd)
     want = _dense_reference(
         p.astype(np.float64), m.astype(np.float64), v.astype(np.float64),
         cot, ids, step, pack=pack, d=d, wd=wd,
@@ -73,8 +76,6 @@ def test_fused_adam_pack1_wide_rows():
 
 def test_fused_adam_weight_decay_and_skew():
     # hot-id traffic: many duplicates land in one block
-    from recsys_tpu.kernels.pallas.embedding_update_tpu import fused_bwd_adam
-
     rng = np.random.default_rng(3)
     vocab, pack, d, n, block, ch = 300, 8, 16, 256, 8, 32
     vp = ((-(-vocab // pack)) + 7) // 8 * 8
@@ -88,12 +89,8 @@ def test_fused_adam_weight_decay_and_skew():
     v = np.zeros_like(p)
     ids2d, idx, cptr = host_prep_group(ids, pack=pack, vp=vp, block=block,
                                        ch=ch)
-    got = fused_bwd_adam(
-        jnp.asarray(p), jnp.asarray(m), jnp.asarray(v),
-        jnp.asarray(np.take(cot, idx, axis=0)), jnp.asarray(ids2d),
-        jnp.asarray(cptr), jnp.int32(1), block=block, ch=ch, pack=pack,
-        d=d, wd=0.01, mm_bf16=True, interpret=True,
-    )
+    got = _adam(p, m, v, np.take(cot, idx, axis=0), ids2d, 1, pack=pack,
+                d=d, wd=0.01)
     want = _dense_reference(
         p.astype(np.float64), m.astype(np.float64), v.astype(np.float64),
         cot, ids, 1, pack=pack, d=d, wd=0.01,
@@ -140,8 +137,7 @@ def test_trainer_fused_adam_matches_dense_optax():
         model = DLRM(schema, bottom_units=(16, 8), top_units=(16,),
                      sparse_embed_grads=fused)
         if fused:
-            kw.update(embedding_optimizer="fused_adam",
-                      embedding_fused_bf16=False)
+            kw.update(embedding_optimizer="fused_adam")
         tr = Trainer(model, **kw)
         hist = tr.fit(data, batch_size=256, epochs=2, verbose=False)
         return hist["loss"]
@@ -155,9 +151,6 @@ def test_fused_rowwise_adagrad_matches_sparse_path():
     """At wd=0 the fused dense rowwise-AdaGrad must equal the existing
     sparse touched-rows update (untouched rows see g=0) — the two paths
     implement ONE optimizer."""
-    from recsys_tpu.kernels.pallas.embedding_update_tpu import (
-        fused_bwd_rowwise_adagrad,
-    )
     from recsys_tpu.train import sparse_embed
 
     rng = np.random.default_rng(5)
@@ -173,12 +166,13 @@ def test_fused_rowwise_adagrad_matches_sparse_path():
 
     ids2d, idx, cptr = host_prep_group(ids, pack=pack, vp=vp, block=block,
                                        ch=ch)
-    got_p, got_acc = fused_bwd_rowwise_adagrad(
-        jnp.asarray(p), jnp.asarray(acc),
+    got_p, got_st = _xla_group_update(
+        jnp.asarray(p), {"acc": jnp.asarray(acc)},
         jnp.asarray(np.take(cot, idx, axis=0)), jnp.asarray(ids2d),
-        jnp.asarray(cptr), 1e-3, block=block, ch=ch, pack=pack, d=d,
-        mm_bf16=True, interpret=True,
+        pack=pack, d=d, lr=1e-3, step=jnp.int32(1), wd=0.0,
+        kind="rowwise_adagrad",
     )
+    got_acc = got_st["acc"]
 
     # the sparse path takes PHYSICAL rows + wide sub-slot-spread cot + slot
     # one-hots (the group_rows_and_cots transform)
@@ -261,12 +255,10 @@ def test_host_prep_sharded_matches_numpy_and_partitions():
 
 
 def test_fused_adam_sharded_slices_match_dense_reference():
-    """Assembling the update from per-shard kernel calls (local table
-    rows, rebased ids, cptr window — exactly what apply_updates_fused runs
-    under shard_map on a model axis) must match the f64 dense scatter+Adam
-    reference."""
-    from recsys_tpu.kernels.pallas.embedding_update_tpu import fused_bwd_adam
-
+    """Assembling the update from per-shard calls (local table rows, ids
+    rebased so other shards' rows fall outside — exactly what
+    apply_updates_fused runs under shard_map on a model axis) must match
+    the f64 dense scatter+Adam reference."""
     rng = np.random.default_rng(21)
     vocab, pack, d, n, block, ch, shards = 500, 8, 16, 256, 16, 64, 2
     vp = ((-(-vocab // pack)) + 7) // 8 * 8
@@ -290,15 +282,9 @@ def test_fused_adam_sharded_slices_match_dense_reference():
     cot_sorted = jnp.asarray(np.take(cot, idx, axis=0))
     outs = []
     for s in range(shards):
-        ids_l = jnp.asarray(ids2d - s * vs * pack)
-        ptr_l = jnp.asarray(cptr[s * nb_s:(s + 1) * nb_s + 1])
-        outs.append(fused_bwd_adam(
-            jnp.asarray(p[s * vs:(s + 1) * vs]),
-            jnp.asarray(m[s * vs:(s + 1) * vs]),
-            jnp.asarray(v[s * vs:(s + 1) * vs]),
-            cot_sorted, ids_l, ptr_l, jnp.int32(step),
-            block=blk, ch=ch, pack=pack, d=d, mm_bf16=True, interpret=True,
-        ))
+        sl = slice(s * vs, (s + 1) * vs)
+        outs.append(_adam(p[sl], m[sl], v[sl], cot_sorted,
+                          ids2d - s * vs * pack, step, pack=pack, d=d))
     got = tuple(np.concatenate([np.asarray(o[i]) for o in outs])
                 for i in range(3))
     want = _dense_reference(
@@ -330,7 +316,7 @@ def test_trainer_fused_adam_model_axis_matches_single_chip():
             DLRM(schema, bottom_units=(16, 8), top_units=(16,),
                  sparse_embed_grads=True),
             learning_rate=1e-2, embedding_optimizer="fused_adam",
-            embedding_fused_bf16=False, seed=11, mesh=mesh,
+            seed=11, mesh=mesh,
         )
         hist = tr.fit(data, batch_size=128, epochs=2, verbose=False)
         _, tables = sparse_embed.split_params(tr.state.params,
@@ -387,7 +373,7 @@ def test_trainer_fused_adam_dp_mesh_matches_single_chip():
             DLRM(schema, bottom_units=(16, 8), top_units=(16,),
                  sparse_embed_grads=True),
             learning_rate=1e-2, embedding_optimizer="fused_adam",
-            embedding_fused_bf16=False, seed=11, mesh=mesh,
+            seed=11, mesh=mesh,
         )
         hist = tr.fit(data, batch_size=128, epochs=2, verbose=False)
         _, tables = sparse_embed.split_params(tr.state.params,
@@ -445,11 +431,9 @@ def test_native_fused_prep_matches_numpy():
 
 
 def test_fused_adam_multi_stream_matches_dense_reference():
-    """kernel ``streams`` form (host-LOCAL prep): S independently sorted
-    per-shard chunk streams must produce the same dense-Adam result as the
-    global sort (VERDICT r4 missing #2 — O(local) host prep)."""
-    from recsys_tpu.kernels.pallas.embedding_update_tpu import fused_bwd_adam
-
+    """host-LOCAL prep: S independently sorted per-shard chunk streams,
+    concatenated, must produce the same dense-Adam result as the global
+    sort (O(local) host prep)."""
     rng = np.random.default_rng(5)
     vocab, pack, d, n, block, ch, S = 500, 8, 16, 256, 16, 32, 4
     vp = ((-(-vocab // pack)) + 7) // 8 * 8
@@ -474,14 +458,8 @@ def test_fused_adam_multi_stream_matches_dense_reference():
         ids2d_l.append(i2)
         cs_l.append(np.take(cot[sl], ix, axis=0))
         cptr_l.append(cp)
-    got = fused_bwd_adam(
-        jnp.asarray(p), jnp.asarray(m), jnp.asarray(v),
-        jnp.asarray(np.concatenate(cs_l)),
-        jnp.asarray(np.concatenate(ids2d_l)),
-        jnp.asarray(np.concatenate(cptr_l)),
-        jnp.int32(step), block=block, ch=ch, pack=pack, d=d,
-        mm_bf16=True, interpret=True, streams=S,
-    )
+    got = _adam(p, m, v, np.concatenate(cs_l), np.concatenate(ids2d_l),
+                step, pack=pack, d=d)
     want = _dense_reference(
         p.astype(np.float64), m.astype(np.float64), v.astype(np.float64),
         cot, ids, step, pack=pack, d=d,
@@ -494,8 +472,7 @@ def test_fused_adam_multi_stream_matches_dense_reference():
 
 def test_trainer_local_contract_matches_global_dp():
     """data_contract='local' on a pure-DP mesh: per-shard host prep +
-    shard-local cotangent permute + the kernel's multi-stream form must
-    track the global-contract run (same batches under one process — only
+    shard-local cotangent permute over all streams must track the global-contract run (same batches under one process — only
     f32 summation order across streams differs)."""
     from recsys_tpu.data.synthetic import synthetic_ctr
     from recsys_tpu.models.ctr.dlrm import DLRM
@@ -512,7 +489,7 @@ def test_trainer_local_contract_matches_global_dp():
             DLRM(schema, bottom_units=(16, 8), top_units=(16,),
                  sparse_embed_grads=True),
             learning_rate=1e-2, embedding_optimizer="fused_adam",
-            embedding_fused_bf16=False, seed=11,
+            seed=11,
             mesh=make_mesh(data=8, model=1), data_contract=contract,
         )
         hist = tr.fit(data, batch_size=128, epochs=2, verbose=False)
@@ -546,7 +523,7 @@ def test_trainer_local_contract_model_axis():
             DLRM(schema, bottom_units=(16, 8), top_units=(16,),
                  sparse_embed_grads=True),
             learning_rate=1e-2, embedding_optimizer="fused_adam",
-            embedding_fused_bf16=False, seed=11, mesh=mesh,
+            seed=11, mesh=mesh,
             data_contract=contract,
         )
         hist = tr.fit(data, batch_size=128, epochs=2, verbose=False)
@@ -580,7 +557,7 @@ def test_local_contract_evaluate_loss_tail_correction():
             DLRM(schema, bottom_units=(16, 8), top_units=(16,),
                  sparse_embed_grads=True),
             learning_rate=1e-2, embedding_optimizer="fused_adam",
-            embedding_fused_bf16=False, seed=1,
+            seed=1,
             mesh=make_mesh(data=8, model=1), data_contract=contract,
         )
         tr.fit(data, batch_size=64, epochs=1, verbose=False)
@@ -591,11 +568,9 @@ def test_local_contract_evaluate_loss_tail_correction():
 
 
 def test_fused_adam_bf16_master_tables():
-    """bf16 master tables: the kernel reads p up to f32, keeps the f32
+    """bf16 master tables: the update reads p up to f32, keeps the f32
     moments bit-identical to the f32-table run (m/v don't depend on p),
     and writes p back in bf16 — one rounding of the f32 update."""
-    from recsys_tpu.kernels.pallas.embedding_update_tpu import fused_bwd_adam
-
     rng = np.random.default_rng(11)
     vocab, pack, d, n, block, ch = 500, 8, 16, 256, 16, 64
     vp = ((-(-vocab // pack)) + 7) // 8 * 8
@@ -616,12 +591,7 @@ def test_fused_adam_bf16_master_tables():
     cs = np.take(cot, idx, axis=0)
 
     def run(p_arr):
-        return fused_bwd_adam(
-            jnp.asarray(p_arr), jnp.asarray(m), jnp.asarray(v),
-            jnp.asarray(cs), jnp.asarray(ids2d), jnp.asarray(cptr),
-            jnp.int32(3), block=block, ch=ch, pack=pack, d=d,
-            mm_bf16=True, interpret=True,
-        )
+        return _adam(p_arr, m, v, cs, ids2d, 3, pack=pack, d=d)
 
     got16 = run(jnp.asarray(p32, jnp.bfloat16))
     got32 = run(p32)
@@ -637,7 +607,7 @@ def test_fused_adam_bf16_master_tables():
 
 def test_trainer_fused_adam_bf16_tables_trains():
     """DLRM with bf16 master tables + fused_adam trains end to end (the
-    corrected-stream_probe byte-diet lever, opt-in)."""
+    opt-in halved-table-bytes layout)."""
     from recsys_tpu.data.synthetic import synthetic_ctr
     from recsys_tpu.models.ctr.dlrm import DLRM
     from recsys_tpu.train.loop import Trainer
@@ -656,10 +626,8 @@ def test_trainer_fused_adam_bf16_tables_trains():
 
 
 def test_xla_tiny_group_update_matches_dense_reference():
-    """The tiny-group XLA fallback (streaming_embed.TINY_TABLE_BYTES) must
-    be the exact kernel semantics: dense Adam over scatter-added grads."""
-    from recsys_tpu.train.streaming_embed import _xla_group_update
-
+    """A small unpacked group (pack=1) through the XLA update is exact
+    dense Adam over scatter-added grads."""
     rng = np.random.default_rng(21)
     vocab, pack, d, n, block, ch = 60, 1, 16, 256, 8, 32
     vp = ((-(-vocab // pack)) + 7) // 8 * 8
@@ -691,29 +659,91 @@ def test_xla_tiny_group_update_matches_dense_reference():
 
 
 def test_trainer_fused_adam_big_vocab_kernel_path():
-    """A table above TINY_TABLE_BYTES keeps the Pallas kernel path in the
-    Trainer (the tiny-group fallback must not swallow production tables),
-    and training still matches the dense-optax trajectory."""
+    """Tables large enough to pack 8 vocab rows per physical row train
+    through the Trainer's fused_adam update and track the dense-optax
+    trajectory."""
     from recsys_tpu.data.synthetic import synthetic_ctr
     from recsys_tpu.models.ctr.dlrm import DLRM
-    from recsys_tpu.train import streaming_embed
+    from recsys_tpu.train import sparse_embed
     from recsys_tpu.train.loop import Trainer
 
     schema, data = synthetic_ctr(num_examples=256, num_dense=4,
                                  num_sparse=3, vocab_size=4096,
                                  embed_dim=8, seed=3)
-    tr = Trainer(
-        DLRM(schema, bottom_units=(16, 8), top_units=(16,),
-             sparse_embed_grads=True),
-        learning_rate=1e-2, embedding_optimizer="fused_adam", seed=1,
-    )
-    hist = tr.fit(data, batch_size=128, epochs=2, verbose=False)
-    assert hist["loss"][-1] < hist["loss"][0]
-    # the bench-scale table really is above the fallback threshold
-    from recsys_tpu.train import sparse_embed
 
+    def run(fused):
+        kw = dict(learning_rate=1e-2, seed=1)
+        if fused:
+            kw["embedding_optimizer"] = "fused_adam"
+        tr = Trainer(DLRM(schema, bottom_units=(16, 8), top_units=(16,),
+                          sparse_embed_grads=fused), **kw)
+        return tr.fit(data, batch_size=128, epochs=2, verbose=False), tr
+
+    hist, tr = run(True)
+    assert hist["loss"][-1] < hist["loss"][0]
+    assert max(tr._embed_plan.packs) > 1
     _, tables = sparse_embed.split_params(tr.state.params, tr._embed_plan)
-    assert any(
-        t.size * t.dtype.itemsize >= streaming_embed.TINY_TABLE_BYTES
-        for t in tables.values()
+    assert all(t.shape[0] >= 64 for t in tables.values())
+    dense, _ = run(False)
+    np.testing.assert_allclose(hist["loss"], dense["loss"], rtol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["adam", "rowwise_adagrad"])
+def test_model_axis_sharded_update_matches_dense_reference(kind):
+    """apply_updates_fused on a model-axis mesh (shard_map, ids rebased
+    per shard, other shards' rows dropped) equals the float64 dense
+    scatter-add + optimizer reference for one group."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from recsys_tpu.parallel.mesh import MODEL_AXIS, make_mesh
+    from recsys_tpu.train.sparse_embed import EmbedPlan
+    from recsys_tpu.train.streaming_embed import (
+        apply_updates_fused, make_host_prep,
     )
+
+    rng = np.random.default_rng(17)
+    vocab, pack, d, b, shards = 500, 8, 16, 256, 4
+    vp = ((-(-vocab // pack)) + 7) // 8 * 8
+    plan = EmbedPlan(prefix=("E",), table_names=("table_0",),
+                     group_cols=((0,),), group_offsets=((0,),),
+                     packs=(pack,), embed_dim=d, group_vocab=(vocab,))
+    sparse = rng.integers(0, vocab, (b, 1)).astype(np.int32)
+    cot = (rng.standard_normal((b, 1, d)) * 1e-2).astype(np.float32)
+    p = rng.uniform(-0.05, 0.05, (vp, pack * d)).astype(np.float32)
+    if kind == "adam":
+        st = {"m": (rng.standard_normal(p.shape) * 1e-3).astype(np.float32),
+              "v": rng.uniform(1e-8, 1e-4, p.shape).astype(np.float32)}
+    else:
+        st = {"acc": rng.uniform(0, 1e-4, (vp, pack)).astype(np.float32)}
+    mesh = make_mesh(data=2, model=shards, devices=jax.devices()[:8])
+    row = NamedSharding(mesh, P(MODEL_AXIS, None))
+    aux = make_host_prep(plan, shards_by_name={"table_0": shards})(sparse)
+    batch = {k: jnp.asarray(v) for k, v in aux.items()}
+    new_t, new_st = jax.jit(
+        lambda t, s, bt, c: apply_updates_fused(
+            {"table_0": t}, {"table_0": s}, plan, bt, c, lr=1e-3,
+            step=jnp.int32(3), kind=kind, mesh=mesh,
+            shards_by_name={"table_0": shards},
+        )
+    )(jax.device_put(p, row), {k: jax.device_put(v, row)
+                               for k, v in st.items()}, batch,
+      jnp.asarray(cot))
+    ids = sparse[:, 0]
+    if kind == "adam":
+        want = _dense_reference(
+            p.astype(np.float64), st["m"].astype(np.float64),
+            st["v"].astype(np.float64), cot[:, 0], ids, 3, pack=pack, d=d,
+        )
+        got = (new_t["table_0"], new_st["table_0"]["m"],
+               new_st["table_0"]["v"])
+    else:
+        g = np.zeros(p.shape, np.float64)
+        for i, r in enumerate(ids):
+            g[r // pack, (r % pack) * d:(r % pack + 1) * d] += cot[i, 0]
+        g3 = g.reshape(vp, pack, d)
+        acc = st["acc"] + np.mean(g3 * g3, axis=2)
+        upd = 1e-3 * g3 / (np.sqrt(acc) + 1e-8)[..., None]
+        want = (p - upd.reshape(p.shape), acc)
+        got = (new_t["table_0"], new_st["table_0"]["acc"])
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), w, rtol=2e-4, atol=1e-7)
